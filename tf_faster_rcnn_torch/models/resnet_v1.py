@@ -1,0 +1,143 @@
+"""ResNet-v1 (50/101/152) backbone with the reference's detection layout.
+
+Port of ``tf_faster_rcnn_tpu/models/resnet_v1.py`` in NCHW, with the flax
+module names (``conv1``, ``conv1_bn``, ``blockN/unit_M/{conv1,conv2,conv3,
+shortcut}/{conv,bn}``) as attribute names, so a state_dict key is the flax
+path joined with dots (``utils/weights.py``).
+
+* stem: conv2d_same(64, 7, /2) -> zero pad(1) -> 3x3/2 VALID max-pool;
+* head: blocks 1-3 with strides (2, 2, 1), each block's stride on its LAST
+  unit, so conv4 ends at stride 16;
+* tail: block4 (stride 1) on the RoI crops, then a spatial mean.
+
+Only the plain 7x7 stem is ported; the space-to-depth stem is a TPU
+workaround.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tf_faster_rcnn_torch.models.layers import (ConvSame, FrozenBatchNorm,
+                                                mask_valid, shrink_valid)
+
+__all__ = ["Bottleneck", "ResNetV1Head", "ResNetV1Tail", "BLOCK_UNITS"]
+
+BLOCK_UNITS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
+_BASE_DEPTHS = (64, 128, 256, 512)
+
+
+class _ConvBN(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 1,
+                 stride: int = 1, relu: bool = True):
+        super().__init__()
+        self.conv = ConvSame(in_ch, out_ch, kernel, stride, bias=False)
+        self.bn = FrozenBatchNorm(out_ch)
+        self.relu = relu
+
+    def forward(self, x):
+        x = self.bn(self.conv(x))
+        return F.relu(x) if self.relu else x
+
+
+class Bottleneck(nn.Module):
+    """1x1 reduce -> 3x3 (the unit stride) -> 1x1 expand, each with BN; relu
+    after the residual add. The shortcut is a stride subsample when the
+    depth is unchanged, else a 1x1/stride conv + BN."""
+
+    def __init__(self, in_ch: int, base_depth: int, stride: int):
+        super().__init__()
+        out_ch = base_depth * 4
+        self.stride = stride
+        if in_ch != out_ch:
+            self.shortcut = _ConvBN(in_ch, out_ch, 1, stride, relu=False)
+        else:
+            self.shortcut = None
+        self.conv1 = _ConvBN(in_ch, base_depth, 1, 1)
+        self.conv2 = _ConvBN(base_depth, base_depth, 3, stride)
+        self.conv3 = _ConvBN(base_depth, out_ch, 1, 1, relu=False)
+
+    def forward(self, x, valid_hw=None):
+        """valid_hw: [B, 2] valid cell extents of x. The margin is re-zeroed
+        only before the 3x3; the output margin is left dirty for the next
+        unit's mask, as in the JAX unit."""
+        if self.shortcut is not None:
+            shortcut = self.shortcut(x)
+        elif self.stride == 1:
+            shortcut = x
+        else:
+            shortcut = x[:, :, ::self.stride, ::self.stride]
+        r = self.conv1(x)
+        if valid_hw is not None:
+            r = mask_valid(r, valid_hw)
+        r = self.conv3(self.conv2(r))
+        return F.relu(shortcut + r)
+
+
+class _Block(nn.Module):
+    def __init__(self, in_ch: int, base_depth: int, num_units: int,
+                 stride: int):
+        super().__init__()
+        self.strides = [stride if u == num_units - 1 else 1
+                        for u in range(num_units)]
+        for u, s in enumerate(self.strides):
+            self.add_module(f"unit_{u + 1}", Bottleneck(in_ch, base_depth, s))
+            in_ch = base_depth * 4
+
+    def forward(self, x, valid_hw=None):
+        for u, s in enumerate(self.strides):
+            x = getattr(self, f"unit_{u + 1}")(x, valid_hw)
+            if valid_hw is not None:
+                valid_hw = shrink_valid(valid_hw, s)
+        return x
+
+
+class ResNetV1Head(nn.Module):
+    """Stem + blocks 1-3 -> stride-16, 1024-channel conv4 features."""
+
+    def __init__(self, num_layers: int = 101):
+        super().__init__()
+        units = BLOCK_UNITS[num_layers]
+        self.conv1 = ConvSame(3, 64, 7, 2, bias=False)
+        self.conv1_bn = FrozenBatchNorm(64)
+        self.block_strides = (2, 2, 1)
+        in_ch = 64
+        for b in range(3):
+            self.add_module(f"block{b + 1}", _Block(
+                in_ch, _BASE_DEPTHS[b], units[b], self.block_strides[b]))
+            in_ch = _BASE_DEPTHS[b] * 4
+
+    def forward(self, x, valid_hw=None):
+        """x: [B, 3, H, W]; valid_hw: [B, 2] per-image PIXEL extents, or None
+        for an input that is all image. Returns [B, 1024, H/16, W/16]."""
+        x = F.relu(self.conv1_bn(self.conv1(x)))
+        if valid_hw is not None:
+            valid_hw = shrink_valid(valid_hw, 2)
+            x = mask_valid(x, valid_hw)
+        # zero pad then VALID pool: max_pool2d(padding=1) would pad with -inf
+        x = F.max_pool2d(F.pad(x, (1, 1, 1, 1)), 3, 2)
+        if valid_hw is not None:
+            valid_hw = shrink_valid(valid_hw, 2)
+            x = mask_valid(x, valid_hw)
+        for b, s in enumerate(self.block_strides):
+            x = getattr(self, f"block{b + 1}")(x, valid_hw)
+            if valid_hw is not None:
+                valid_hw = shrink_valid(valid_hw, s)
+        if valid_hw is not None:
+            x = mask_valid(x, valid_hw)
+        return x
+
+
+class ResNetV1Tail(nn.Module):
+    """block4 on pooled crops [N, 1024, 7, 7], then the spatial mean ->
+    [N, 2048]."""
+
+    def __init__(self, num_layers: int = 101):
+        super().__init__()
+        self.block4 = _Block(_BASE_DEPTHS[2] * 4, _BASE_DEPTHS[3],
+                             BLOCK_UNITS[num_layers][3], 1)
+
+    def forward(self, pooled):
+        return self.block4(pooled).mean(dim=(2, 3))

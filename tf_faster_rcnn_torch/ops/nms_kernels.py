@@ -1,0 +1,194 @@
+"""Wrappers of the two CUDA NMS kernels, and their plain PyTorch versions.
+
+Kernel sources: ``tf_faster_rcnn_torch/csrc/nms.cu``, built by
+``utils/build.py``. Each wrapper checks its inputs and raises on what the
+kernel does not take. A tensor on the CPU goes to the plain version; a CUDA
+tensor goes to the kernel, launched on the current stream, and a nonzero
+``cudaGetLastError()`` raises. Nothing falls back from one to the other.
+
+K1 ``nms_keep_mask_batched`` replaces ``_nms_kernel`` /
+``pallas_nms_keep_mask`` (tf_faster_rcnn_tpu/ops/pallas_nms.py). On this card
+it is bound by its N^2/2 IoU tests and the serial greedy chain. Its design: a
+64x64-tiled mask pass writes one uint64 suppression word per (box, column
+block), all B images in one grid; a one-warp-per-image scan walks the chain
+with the `removed` bits in registers and stops at ``max_keep`` survivors. The
+step thus never syncs with the host.
+
+K2 ``batched_nms_keep`` replaces ``_batched_nms_kernel`` /
+``pallas_batched_nms_keep``. It is bound by N serial steps per instance. One
+CTA per instance keeps boxes and alive flags in shared memory; G = 160
+instances fill the card in one wave.
+
+Each wrapper counts its kernel launches in a plain integer attribute,
+``<wrapper>.launches``; the plain versions count nothing.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tf_faster_rcnn_torch.ops.boxes import bbox_overlaps
+
+__all__ = ["nms_keep_mask_batched", "batched_nms_keep",
+           "nms_keep_mask_plain", "batched_nms_keep_plain",
+           "reset_launch_counts", "launch_counts"]
+
+_TILE = 64      # boxes per suppression word of K1
+_BLOCK = 128    # row block of the plain K1, as in ops/nms.py
+
+
+def _check(boxes, valid, name):
+    if boxes.ndim != 3 or boxes.shape[-1] != 4:
+        raise ValueError(f"{name}: boxes must be [G, N, 4], got "
+                         f"{tuple(boxes.shape)}")
+    if valid.shape != boxes.shape[:2]:
+        raise ValueError(f"{name}: valid must be {tuple(boxes.shape[:2])}, "
+                         f"got {tuple(valid.shape)}")
+    if boxes.dtype != torch.float32:
+        raise TypeError(f"{name}: boxes must be float32, got {boxes.dtype}")
+    if valid.dtype != torch.bool:
+        raise TypeError(f"{name}: valid must be bool, got {valid.dtype}")
+    if boxes.device != valid.device:
+        raise ValueError(f"{name}: boxes on {boxes.device}, valid on "
+                         f"{valid.device}")
+    if not (boxes.is_contiguous() and valid.is_contiguous()):
+        raise ValueError(f"{name}: boxes and valid must be contiguous")
+    if boxes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {boxes.device}")
+    if boxes.device.type == "cuda" and boxes.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel reads boxes as float4, so they "
+                         "must start on a 16-byte boundary")
+
+
+def _launch(fn, name, *args):
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with "
+                           f"cudaError {err}")
+
+
+def _over(iou, thresh, suppress_eq):
+    return iou >= thresh if suppress_eq else iou > thresh
+
+
+def nms_keep_mask_plain(boxes, valid, thresh, *, plus_one=False,
+                        suppress_eq=False, max_keep=None):
+    """Plain K1: the block NMS of tf_faster_rcnn_tpu/ops/nms.py:85-112 in
+    torch, batched over the leading dim, then capped at ``max_keep``
+    survivors exactly as the kernel caps them."""
+    g, n = valid.shape
+    thresh = torch.tensor(thresh, dtype=torch.float32)
+    keep = valid.clone()
+    idx = torch.arange(_BLOCK, device=boxes.device)
+    for s in range(0, n, _BLOCK):
+        e = min(s + _BLOCK, n)
+        over_all = _over(bbox_overlaps(boxes[:, s:e], boxes, plus_one),
+                         thresh, suppress_eq)              # [G, b, N]
+        over_in = over_all[:, :, s:e]
+        bk = keep[:, s:e].clone()
+        for i in range(e - s):
+            sup = bk[:, i:i + 1] & over_in[:, i] & (idx[:e - s] > i)
+            bk &= ~sup
+        sup_later = (bk[:, :, None] & over_all[:, :, e:]).any(dim=1)
+        keep[:, e:] &= ~sup_later
+        keep[:, s:e] = bk
+    if max_keep is not None:
+        keep &= torch.cumsum(keep, dim=1) <= max_keep
+    return keep
+
+
+def nms_keep_mask_batched(boxes, valid, thresh, *, plus_one=False,
+                          suppress_eq=False, max_keep=None):
+    """K1: greedy NMS keep masks for B images of score-sorted boxes.
+
+    boxes: [B, N, 4] float32; valid: [B, N] bool (invalid boxes are never
+    kept and never suppress). Returns keep [B, N] bool: box i is kept iff it
+    is valid, no kept j < i has IoU(i, j) over ``thresh``, and fewer than
+    ``max_keep`` boxes before it are kept (None: no cap). The first
+    ``max_keep`` survivors are the exact greedy ones; later bits are 0.
+    """
+    _check(boxes, valid, "nms_keep_mask_batched")
+    if max_keep is not None and max_keep < 1:
+        raise ValueError(f"max_keep must be >= 1, got {max_keep}")
+    if boxes.device.type == "cpu":
+        return nms_keep_mask_plain(boxes, valid, thresh, plus_one=plus_one,
+                                   suppress_eq=suppress_eq, max_keep=max_keep)
+    from tf_faster_rcnn_torch.utils.build import get_lib
+    lib = get_lib()
+    b, n = valid.shape
+    if n > lib.frcnn_nms_max_boxes():
+        raise ValueError(f"nms_keep_mask_batched: N={n} exceeds the "
+                         f"kernel's {lib.frcnn_nms_max_boxes()} boxes")
+    keep = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
+    if b == 0 or n == 0:
+        return keep
+    col_blocks = -(-n // _TILE)
+    mask = torch.empty((b, n, col_blocks), dtype=torch.int64,
+                       device=boxes.device)
+    cap = n + 1 if max_keep is None else int(max_keep)
+    with torch.cuda.device(boxes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch(lib.frcnn_nms_keep_mask, "nms_keep_mask_batched",
+                boxes.data_ptr(), valid.data_ptr(), b, n, float(thresh),
+                int(plus_one), int(suppress_eq), min(cap, 2**31 - 1),
+                mask.data_ptr(), keep.data_ptr(), stream)
+    nms_keep_mask_batched.launches += 1
+    return keep
+
+
+def batched_nms_keep_plain(boxes, valid, thresh, *, plus_one=False,
+                           suppress_eq=False):
+    """Plain K2: the sequential sweep over i of _batched_nms_kernel,
+    vectorized over all [G, N] boxes at each step."""
+    n = valid.shape[1]
+    thresh = torch.tensor(thresh, dtype=torch.float32)
+    alive = valid.clone()
+    later = torch.arange(n, device=boxes.device)
+    for i in range(n):
+        iou = bbox_overlaps(boxes[:, i:i + 1], boxes, plus_one)[:, 0]  # [G, N]
+        sup = _over(iou, thresh, suppress_eq) & (later > i) & alive[:, i:i + 1]
+        alive &= ~sup
+    return alive
+
+
+def batched_nms_keep(boxes, valid, thresh, *, plus_one=False,
+                     suppress_eq=False):
+    """K2: exact greedy NMS over G independent score-sorted instances.
+
+    boxes: [G, N, 4] float32; valid: [G, N] bool. Returns keep [G, N] bool,
+    each row the greedy keep mask of its instance.
+    """
+    _check(boxes, valid, "batched_nms_keep")
+    if boxes.device.type == "cpu":
+        return batched_nms_keep_plain(boxes, valid, thresh, plus_one=plus_one,
+                                      suppress_eq=suppress_eq)
+    from tf_faster_rcnn_torch.utils.build import get_lib
+    lib = get_lib()
+    g, n = valid.shape
+    if n > lib.frcnn_batched_nms_max_boxes():
+        raise ValueError(f"batched_nms_keep: N={n} exceeds the kernel's "
+                         f"{lib.frcnn_batched_nms_max_boxes()} boxes")
+    keep = torch.empty((g, n), dtype=torch.bool, device=boxes.device)
+    if g == 0 or n == 0:
+        return keep
+    with torch.cuda.device(boxes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch(lib.frcnn_batched_nms_keep, "batched_nms_keep",
+                boxes.data_ptr(), valid.data_ptr(), g, n, float(thresh),
+                int(plus_one), int(suppress_eq), keep.data_ptr(), stream)
+    batched_nms_keep.launches += 1
+    return keep
+
+
+nms_keep_mask_batched.launches = 0
+batched_nms_keep.launches = 0
+
+
+def reset_launch_counts():
+    nms_keep_mask_batched.launches = 0
+    batched_nms_keep.launches = 0
+
+
+def launch_counts() -> dict:
+    return {"nms_keep_mask_batched": nms_keep_mask_batched.launches,
+            "batched_nms_keep": batched_nms_keep.launches}
