@@ -10,7 +10,9 @@ Phases, in order; any failure raises and the exit code is nonzero:
 2. build: nvcc builds the kernels from tf_faster_rcnn_torch/csrc/*.cu;
 3. kernels: K1 (nms_keep_mask_batched) and K2 (batched_nms_keep) on the
    card against their plain PyTorch versions on the same inputs, with exact
-   equality of the boolean masks;
+   equality of the boolean masks: random boxes, the cases of edge_cases()
+   that a wrong quick reject or a broken chain would fail, K1 at the TRAIN
+   shape [8, 12000] -> 2000 and K2 at the COCO shape [640, 1000];
 4. main path: the ResNet-101 TEST detect step (batch 8, 608x1024 canvas,
    21 classes, 6000 -> 300 proposals, float32, seeded random weights) through
    make_detect_fn. Both kernels must have launched; the detections must be
@@ -18,8 +20,10 @@ Phases, in order; any failure raises and the exit code is nonzero:
    deterministic cuDNN, once through the kernels and once through the plain
    versions on the card, must give equal proposals and detections, and each
    kernel must equal its plain version on the inputs the main path gave it;
-5. times, with CUDA events after warm-up: each kernel against its plain
-   version on the main path's own inputs, the detect step and its stages.
+5. times, with CUDA events after warm-up: each kernel (device time, from a
+   CUDA graph of 20 calls replayed, and per call from Python) against its
+   plain version on the main path's own inputs, beside its bound; K1 at the
+   TRAIN shape and K2 at the COCO shape; the detect step and its stages.
 
 The line before the last is one JSON object describing the kernels; the last
 is {"ok": true, "device": {...}}. TF32 is off in every phase: a float32
@@ -44,6 +48,13 @@ SEED = 0
 WARMUP = 3
 ITERS = 10
 SOURCE = "tf_faster_rcnn_torch/csrc/nms.cu"
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 FLOP/s outside
+# the tensor cores; and the float32 operations of one IoU test (min, max,
+# sub, add, max for each of iw and ih; inter; uni's add and sub; uni > 0;
+# the division; the threshold compare), the areas computed once per box.
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 67e12
+FLOP_PER_TEST = 16
 REPLACES = {
     "nms_keep_mask_batched": "tf_faster_rcnn_tpu/ops/pallas_nms.py:55",
     "batched_nms_keep": "tf_faster_rcnn_tpu/ops/pallas_nms.py:149",
@@ -76,6 +87,54 @@ def sorted_boxes(rng, n):
     return dets[order, :4]
 
 
+def edge_cases(rng):
+    """Inputs on which a wrong quick reject, a wrong IoU convention or a
+    broken chain across row blocks would give another mask: a list of
+    (name, boxes [G, N, 4] f32, valid [G, N] bool, thresh, plus_one,
+    suppress_eq), every instance in score order.
+
+    * edges: boxes on a 10-pixel lattice, so that many share an edge or a
+      corner exactly (iw == 0 without +1, iw == 1 with +1);
+    * degenerate: zero-area, inverted and sub-pixel boxes (uni <= 0 with
+      +1), among normal ones;
+    * chain: a row in which each box overlaps only the next one, so each
+      box's fate hangs on all before it (a chain of depth N);
+    * each with thresh 0.0 and suppress_eq, where every box suppresses."""
+    def edges(g, n):
+        xy = rng.randint(0, 8, (g, n, 2)) * 10.0
+        wh = rng.randint(1, 3, (g, n, 2)) * 10.0
+        return np.concatenate([xy, xy + wh], -1).astype(np.float32)
+
+    def degenerate(g, n):
+        xy = rng.uniform(0, 50, (g, n, 2))
+        wh = rng.choice([-2.0, -1.0, -0.5, 0.0, 0.5, 1.0, 7.0, 20.0],
+                        (g, n, 2))
+        wh = np.where(rng.rand(g, n, 2) < 0.5, wh, rng.uniform(0, 30, (g, n, 2)))
+        return np.concatenate([xy, xy + wh], -1).astype(np.float32)
+
+    def chain(g, n):
+        x = np.arange(n, dtype=np.float32)[None, :, None] * 6.0
+        row = np.concatenate([x, 0 * x, x + 10, 0 * x + 10], -1)
+        return np.repeat(row, g, axis=0).astype(np.float32)
+
+    cases = []
+    for name, make, g, n in (("edges", edges, 2, 500),
+                             ("degenerate", degenerate, 2, 500),
+                             ("chain", chain, 2, 1000),
+                             ("chain", chain, 1, 6000)):
+        boxes = make(g, n)
+        valid = rng.rand(g, n) > 0.05
+        if name == "chain":
+            valid[:] = True
+        for plus_one, suppress_eq, thresh in ((False, False, 0.2),
+                                              (True, False, 0.01),
+                                              (True, True, 0.0),
+                                              (False, False, 0.0)):
+            cases.append((f"{name} N={n}", boxes, valid, thresh, plus_one,
+                          suppress_eq))
+    return cases
+
+
 def cuda_ms(fn, iters):
     """Mean device time of fn() over iters calls, by CUDA events."""
     import torch
@@ -93,6 +152,47 @@ def timed(fn, iters=ITERS, warmup=WARMUP):
     for _ in range(warmup):
         fn()
     return cuda_ms(fn, iters)
+
+
+def graph_ms(fn, calls=20, replays=5):
+    """Device time of one fn() call: `calls` calls captured in one CUDA
+    graph, replayed after a warm-up, so the Python wrapper's own time drops
+    out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    return cuda_ms(graph.replay, replays) / calls
+
+
+def bound(boxes, valid, keep, max_keep):
+    """(bound_ms, bound_by, tests) for one NMS call on these inputs: the
+    larger of its bytes (boxes and valid read once, keep written once) over
+    the HBM rate and its IoU tests over the float32 rate. The tests this
+    data needs: each valid box before E (the index of the max_keep-th keep;
+    N without a cap) against each kept box before it."""
+    import torch
+    n = keep.shape[1]
+    kept = keep.long()
+    before = torch.cumsum(kept, dim=1) - kept
+    extent = (k1_extent(keep, max_keep) if max_keep is not None
+              else [n] * keep.shape[0])
+    upto = (torch.arange(n, device=keep.device)[None, :]
+            < torch.tensor(extent, device=keep.device)[:, None])
+    tests = int((before * (valid & upto)).sum())
+    nbytes = boxes.numel() * 4 + valid.numel() + keep.numel()
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = tests * FLOP_PER_TEST / F32_FLOP_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", tests
+    return t_ops, "operations", tests
 
 
 def phase_device():
@@ -176,7 +276,50 @@ def phase_kernels(dev):
                                             plus_one=plus_one)
             check("batched_nms_keep", got, want,
                   f"G={g} N={n} plus_one={plus_one}")
+
+    for name, boxes, valid, thresh, plus_one, suppress_eq in edge_cases(rng):
+        boxes = torch.from_numpy(boxes).to(dev)
+        valid = torch.from_numpy(valid).to(dev)
+        kw = dict(plus_one=plus_one, suppress_eq=suppress_eq)
+        case = f"{name} thresh={thresh} {kw}"
+        for max_keep in (None, 40):
+            check("nms_keep_mask_batched",
+                  K.nms_keep_mask_batched(boxes, valid, thresh,
+                                          max_keep=max_keep, **kw),
+                  K.nms_keep_mask_plain(boxes, valid, thresh,
+                                        max_keep=max_keep, **kw),
+                  f"{case} max_keep={max_keep}")
+        if boxes.shape[1] <= 1000:
+            check("batched_nms_keep", K.batched_nms_keep(boxes, valid, thresh, **kw),
+                  K.batched_nms_keep_plain(boxes, valid, thresh, **kw), case)
+
+    boxes, valid = train_shape_inputs(dev)
+    got = K.nms_keep_mask_batched(boxes, valid, 0.7, max_keep=2000)
+    check("nms_keep_mask_batched", got,
+          K.nms_keep_mask_plain(boxes, valid, 0.7, max_keep=2000),
+          "TRAIN shape [8, 12000] max_keep=2000")
+    print(f"  K1 E per image at the TRAIN shape: {k1_extent(got, 2000)}")
     return err
+
+
+def train_shape_inputs(dev):
+    """K1's TRAIN-mode shape (RPN 12000 -> 2000, ROADMAP slice 2), B = 8,
+    on random score-sorted boxes."""
+    import torch
+    rng = np.random.RandomState(SEED + 1)
+    boxes = np.stack([sorted_boxes(rng, 12000) for _ in range(BATCH)])
+    return (torch.from_numpy(boxes).to(dev),
+            torch.from_numpy(rng.rand(BATCH, 12000) > 0.05).to(dev))
+
+
+def coco_shape_inputs(dev):
+    """K2's shape at the COCO lg config: 8 images x 80 classes = 640
+    instances of 1000 boxes, on random score-sorted boxes."""
+    import torch
+    rng = np.random.RandomState(SEED + 2)
+    boxes = np.stack([sorted_boxes(rng, 1000) for _ in range(640)])
+    return (torch.from_numpy(boxes).to(dev),
+            torch.from_numpy(rng.rand(640, 1000) > 0.1).to(dev))
 
 
 @contextlib.contextmanager
@@ -215,9 +358,8 @@ def build_main_path(dev):
     from tf_faster_rcnn_torch.models.network import FasterRCNN, ModelSpec
     spec = ModelSpec("res101", NUM_CLASSES, rpn_pre_nms_top_n=6000,
                      rpn_post_nms_top_n=300)
-    model = FasterRCNN(spec).eval()
+    model = FasterRCNN(spec).eval()       # built on the card by default
     init_model(model, torch.Generator().manual_seed(SEED))
-    model.to(dev)
     rng = np.random.RandomState(SEED)
     h, w = CANVAS
     image = torch.from_numpy(synthetic_scenes(rng, BATCH, h, w)).to(dev)
@@ -277,10 +419,24 @@ def phase_main_path(spec, model, detect, inputs, errors):
     # each kernel against its plain version on the main path's own inputs
     for name, (kernel, plain) in kernel_pairs().items():
         args, kwargs = captured[name]
-        check_equal(errors, name, kernel(*args, **kwargs),
-                    plain(*args, **kwargs),
+        got = kernel(*args, **kwargs)
+        check_equal(errors, name, got, plain(*args, **kwargs),
                     f"main path {tuple(args[0].shape)} {kwargs}")
+        if name == "nms_keep_mask_batched":
+            print(f"  K1 E per image: {k1_extent(got, kwargs['max_keep'])} "
+                  f"of N={got.shape[1]}")
     return launches, captured
+
+
+def k1_extent(keep, max_keep):
+    """E per image: the index of the max_keep-th kept box (N if fewer are
+    kept). K1's answer depends on no box past E."""
+    import torch
+    n = keep.shape[1]
+    count = torch.cumsum(keep.int(), dim=1)
+    reached = count[:, -1] >= max_keep
+    first = torch.argmax((count >= max_keep).int(), dim=1)
+    return torch.where(reached, first, torch.full_like(first, n)).tolist()
 
 
 def phase_times(card, model, detect, inputs, captured):
@@ -292,13 +448,34 @@ def phase_times(card, model, detect, inputs, captured):
         shape = tuple(args[0].shape)
         # plain, kernel, kernel, plain: the pairs share one card and warm-up
         t_plain = timed(lambda: plain(*args, **kwargs), iters=3, warmup=1)
-        t_kernel = timed(lambda: kernel(*args, **kwargs))
-        t_kernel = min(t_kernel, timed(lambda: kernel(*args, **kwargs)))
+        t_call = timed(lambda: kernel(*args, **kwargs))
+        t_kernel = graph_ms(lambda: kernel(*args, **kwargs))
+        t_kernel = min(t_kernel, graph_ms(lambda: kernel(*args, **kwargs)))
+        t_call = min(t_call, timed(lambda: kernel(*args, **kwargs)))
         t_plain = min(t_plain, timed(lambda: plain(*args, **kwargs),
                                      iters=3, warmup=1))
-        times[name] = (t_kernel, t_plain)
-        print(f"time {name} {shape}: kernel {t_kernel:.4f} ms, plain "
-              f"{t_plain:.4f} ms [{card}]")
+        keep = kernel(*args, **kwargs)
+        b_ms, b_by, tests = bound(args[0], args[1], keep,
+                                  kwargs.get("max_keep"))
+        times[name] = (t_kernel, t_plain, b_ms, b_by)
+        print(f"time {name} {shape}: kernel {t_kernel:.4f} ms (graph "
+              f"replay; {t_call:.4f} ms per call from Python), plain "
+              f"{t_plain:.4f} ms, bound {b_ms:.6f} ms by {b_by} ({tests} "
+              f"IoU tests), share {b_ms / t_kernel:.4f} [{card}]")
+
+    from tf_faster_rcnn_torch.ops import nms_kernels as K
+    dev = inputs[0].device
+    for label, fn, (boxes, valid), thresh, kw in (
+            ("K1 TRAIN shape", K.nms_keep_mask_batched,
+             train_shape_inputs(dev), 0.7, dict(max_keep=2000)),
+            ("K2 COCO shape", K.batched_nms_keep, coco_shape_inputs(dev),
+             0.3, dict(plus_one=True))):
+        t = graph_ms(lambda: fn(boxes, valid, thresh, **kw), calls=5)
+        b_ms, b_by, tests = bound(boxes, valid, fn(boxes, valid, thresh, **kw),
+                                  kw.get("max_keep"))
+        print(f"time {label} {tuple(boxes.shape)} {kw}: kernel {t:.4f} ms "
+              f"(graph replay), bound {b_ms:.6f} ms by {b_by} ({tests} IoU "
+              f"tests), share {b_ms / t:.4f} [{card}]")
 
     image, im_info, orig_hw = inputs
     with torch.inference_mode():
@@ -342,7 +519,8 @@ def main():
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": errors[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
+         "plain_ms": times[name][1], "bound_ms": times[name][2],
+         "bound_by": times[name][3], "library_ms": None}
         for name in ("nms_keep_mask_batched", "batched_nms_keep")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -67,7 +67,7 @@ def _models(backbone, canvas, seed, **kw):
                             jnp.array([[float(canvas[0]), float(canvas[1]),
                                         1.0]]))
     params = numpy_params(shapes, seed)
-    tmodel = tnet.FasterRCNN(tspec).eval()
+    tmodel = tnet.FasterRCNN(tspec, device="cpu").eval()
     tmodel.load_state_dict(state_dict_from_flax(params), strict=True)
     return jspec, jmodel, params, tspec, tmodel
 
@@ -92,7 +92,8 @@ def test_proposals_match(rng, fh, fw, pre, post, ties):
     j_rois, j_scores, j_valid = jnet.FasterRCNN(jspec).apply(
         {}, anchors, deltas, scores, im_info, fw,
         method=jnet.FasterRCNN._proposals)
-    t_rois, t_scores, t_valid = tnet.FasterRCNN(tspec)._proposals(
+    tmodel = tnet.FasterRCNN(tspec, device="cpu")
+    t_rois, t_scores, t_valid = tmodel._proposals(
         _t(anchors), _t(deltas), _t(scores), _t(im_info), fw)
     np.testing.assert_array_equal(t_valid.numpy(), np.asarray(j_valid))
     np.testing.assert_array_equal(t_scores.numpy(), np.asarray(j_scores))

@@ -3,8 +3,10 @@
 On the CPU the wrappers run the plain versions of kernels K1 and K2; these
 tests hold them to the Pallas kernels in interpret mode, the jnp block NMS
 and the native C++ oracle. Tolerance: none, the masks and indices must be
-exactly equal. The CUDA kernels themselves are held to the plain versions by
-the `cuda`-marked test at the end, on the card.
+exactly equal. The CUDA engine's algorithm (csrc/nms.cu) is emulated in
+numpy and held exactly to the plain K1 here; the CUDA kernels themselves are
+held to the plain versions by the `cuda`-marked test at the end, on the
+card.
 """
 
 import jax.numpy as jnp
@@ -12,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from tf_faster_rcnn_tpu.ops import nms as jnms
 from tf_faster_rcnn_tpu.ops.pallas_nms import (pallas_batched_nms_keep,
                                                pallas_nms_keep_mask)
@@ -202,33 +205,224 @@ def test_cpu_calls_count_no_launch(rng):
                                  "batched_nms_keep": 0}
 
 
+def _emulated_threshold(thresh, suppress_eq):
+    """The kernel's Threshold (csrc/nms.cu): `iou over thresh` as
+    fl(q) > T, decided by the rounding boundary m of T when 0 <= T < FLT_MAX,
+    else by the division."""
+    t = np.float32(thresh)
+    big = np.float32(np.finfo(np.float32).max)
+    tt = np.nextafter(t, np.float32(-np.inf)) if suppress_eq else t
+    th = dict(t=t, eq=suppress_eq, zero_over=bool(0 >= t if suppress_eq
+                                                  else 0 > t),
+              exact=bool(0 <= tt < big), T=tt,
+              margin=np.float32(tt * np.float32(2.0 ** -20)))
+    th["filter"] = th["exact"] and tt >= np.float32(2.0 ** -80)
+    if th["exact"]:
+        u = np.nextafter(tt, np.float32(np.inf))
+        th["m"] = (np.float64(tt) + np.float64(u)) / 2
+        th["tie_up"] = int(np.array(u).view(np.uint32)) % 2 == 0
+    return th
+
+
+def _emulated_over(inter, uni, th):
+    """`fl(inter / uni) over thresh` where inter > 0 and uni > 0, decided as
+    the kernel decides it: without the division, by the float pre-test and
+    then the exact test on m for what it leaves open; or by the division
+    where the threshold admits no such test."""
+    if not th["exact"]:
+        with np.errstate(divide="ignore", invalid="ignore"):
+            iou = inter / np.where(uni > 0, uni, np.float32(1))
+        return iou >= th["t"] if th["eq"] else iou > th["t"]
+    p = th["m"] * uni.astype(np.float64)
+    q = inter.astype(np.float64)
+    over = (q > p) | ((q == p) & th["tie_up"])
+    if th["filter"]:
+        with np.errstate(over="ignore", invalid="ignore"):
+            pf = th["T"] * uni
+            d = inter - pf
+            mg = th["margin"] * uni
+        tested = pf >= np.float32(2.0 ** -100)
+        over = np.where(tested & (d > mg), True,
+                        np.where(tested & (d < -mg), False, over))
+    return over
+
+
+def _emulated_suppresses(a, aa, b, ab, e, th):
+    """[M, K] bool: box a_i suppresses box b_j, the kernel's float32 IoU
+    operation for operation, with its quick reject: a pair with no
+    intersection, or no positive union, is over the threshold only where an
+    IoU of 0 is."""
+    iw = np.maximum(np.minimum(a[:, None, 2], b[None, :, 2])
+                    - np.maximum(a[:, None, 0], b[None, :, 0]) + e,
+                    np.float32(0))
+    ih = np.maximum(np.minimum(a[:, None, 3], b[None, :, 3])
+                    - np.maximum(a[:, None, 1], b[None, :, 1]) + e,
+                    np.float32(0))
+    inter = iw * ih
+    uni = aa[:, None] + ab[None, :] - inter
+    live = (inter > 0) & (uni > 0)
+    return np.where(live, _emulated_over(inter, uni, th), th["zero_over"])
+
+
+def _emulated_k1(boxes, valid, thresh, plus_one, suppress_eq, max_keep):
+    """The CUDA engine's algorithm for one instance, in numpy: 64-box row
+    blocks in order; each valid box of block j is tested against the boxes
+    kept so far (a hit sets its `removed` bit), a surviving box c gets its
+    in-block mask sup[c] (the boxes t < c of the block that suppress it),
+    and the block resolves to the fixed point of a = cand & ~(sup^T a),
+    cand = valid & ~removed, iterated from a = cand; its first
+    max_keep - total boxes join the kept list; after the cap, keep is 0."""
+    n = boxes.shape[0]
+    nb = -(-n // 64)
+    e = np.float32(1 if plus_one else 0)
+    box = np.zeros((nb * 64, 4), np.float32)
+    box[:n] = boxes
+    ok = np.zeros(nb * 64, bool)
+    ok[:n] = valid
+    area = (box[:, 2] - box[:, 0] + e) * (box[:, 3] - box[:, 1] + e)
+    th = _emulated_threshold(thresh, suppress_eq)
+    keep = np.zeros(nb * 64, bool)
+    kept_idx = np.zeros(0, np.int64)
+    cap = n + 1 if max_keep is None else max_keep
+    before = np.tril(np.ones((64, 64), bool), -1)      # [c, t]: t < c
+    for j in range(nb):
+        rows = slice(64 * j, 64 * j + 64)
+        removed = np.zeros(64, bool)
+        if len(kept_idx):
+            removed = _emulated_suppresses(box[kept_idx], area[kept_idx],
+                                           box[rows], area[rows], e,
+                                           th).any(0)
+        cand = ok[rows] & ~removed
+        sup = _emulated_suppresses(box[rows], area[rows], box[rows],
+                                   area[rows], e, th).T & before
+        a = cand.copy()
+        while True:
+            nxt = cand & ~(sup & a[None, :]).any(1)
+            if (nxt == a).all():
+                break
+            a = nxt
+        room = cap - len(kept_idx)
+        a &= np.cumsum(a) <= room
+        keep[rows] = a
+        kept_idx = np.concatenate([kept_idx, np.flatnonzero(a) + 64 * j])
+        if len(kept_idx) >= cap:
+            break
+    return keep[:n]
+
+
+@pytest.mark.parametrize("max_keep", [None, 40])
+@pytest.mark.parametrize("plus_one,suppress_eq", [
+    (False, False), (True, False), (True, True)])
+@pytest.mark.parametrize("n", [64, 500, 2048, 6000])
+def test_emulated_kernel_matches_plain(rng, n, plus_one, suppress_eq,
+                                       max_keep):
+    """The CUDA engine's algorithm, emulated in numpy, equals the plain K1
+    exactly, with an invalid stretch in the second image."""
+    boxes = np.stack([_sorted_boxes(rng, n) for _ in range(2)])
+    valid = np.ones((2, n), bool)
+    valid[1, n // 8:n // 4] = False
+    kw = dict(plus_one=plus_one, suppress_eq=suppress_eq)
+    want = K.nms_keep_mask_plain(torch.from_numpy(boxes),
+                                 torch.from_numpy(valid), 0.5,
+                                 max_keep=max_keep, **kw).numpy()
+    for i in range(2):
+        got = _emulated_k1(boxes[i], valid[i], 0.5, max_keep=max_keep, **kw)
+        np.testing.assert_array_equal(got, want[i])
+
+
+@pytest.mark.parametrize("case", range(len(chip_smoke.edge_cases(
+    np.random.RandomState(0)))))
+def test_emulated_kernel_matches_plain_on_edge_cases(case):
+    """chip_smoke.py's edge cases (shared edges, degenerate boxes, the
+    depth-N chain, thresh 0 with >=): emulation and plain K1 equal."""
+    name, boxes, valid, thresh, plus_one, suppress_eq = chip_smoke.edge_cases(
+        np.random.RandomState(0))[case]
+    kw = dict(plus_one=plus_one, suppress_eq=suppress_eq)
+    for max_keep in (None, 40):
+        want = K.nms_keep_mask_plain(torch.from_numpy(boxes),
+                                     torch.from_numpy(valid), thresh,
+                                     max_keep=max_keep, **kw).numpy()
+        for i in range(len(boxes)):
+            got = _emulated_k1(boxes[i], valid[i], thresh, max_keep=max_keep,
+                               **kw)
+            np.testing.assert_array_equal(got, want[i], err_msg=name)
+
+
+@pytest.mark.parametrize("thresh", [0.7, 0.3, 0.5, 0.01, 1e-30])
+@pytest.mark.parametrize("eq", [False, True])
+def test_emulated_threshold_is_the_division_at_the_boundary(thresh, eq):
+    """The division-free decision (float pre-test, then the test on m)
+    equals fl(inter / uni) compared with the threshold: quotients on, just
+    below and just above each float near the threshold, at unions from
+    1e-38 to 1e6, and random pairs across the same range."""
+    th = _emulated_threshold(thresh, eq)
+    t = np.float32(thresh)
+    near = [t]
+    for _ in range(3):
+        near = [np.nextafter(near[0], np.float32(0))] + near + [
+            np.nextafter(near[-1], np.float32(1))]
+    uni = np.concatenate([np.float32(np.arange(1, 5000, 7)),
+                          np.float32(10.0 ** np.arange(-38, 7))])
+    for v in near:
+        inter = (uni * v).astype(np.float32)
+        for delta in (-1, 0, 1):
+            x = np.nextafter(inter, np.float32(delta * np.inf)) \
+                if delta else inter
+            x = np.minimum(x, uni)
+            live = x > 0
+            iou = x[live] / uni[live]
+            want = iou >= t if eq else iou > t
+            np.testing.assert_array_equal(
+                _emulated_over(x[live], uni[live], th), want)
+    rng = np.random.RandomState(7)
+    uni = np.float32(10.0 ** rng.uniform(-38, 6, 100000))
+    x = np.float32(uni * rng.uniform(0, 1, uni.shape))
+    live = x > 0
+    iou = x[live] / uni[live]
+    np.testing.assert_array_equal(_emulated_over(x[live], uni[live], th),
+                                  iou >= t if eq else iou > t)
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card(rng):
     """K1 and K2 on the card equal their plain versions on the same inputs,
-    and each call launches its kernel once."""
+    with the edge cases of chip_smoke.py, K1 at the TRAIN shape and K2 at the
+    COCO shape; each call launches its kernel once."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the GPU machine)")
     dev = torch.device("cuda")
     K.reset_launch_counts()
+    calls = {"nms_keep_mask_batched": 0, "batched_nms_keep": 0}
+
+    def same(kernel, plain, *args, **kw):
+        calls[kernel.__name__] += 1
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain(*args, **kw)), (args[0].shape, kw)
+
+    k1 = (K.nms_keep_mask_batched, K.nms_keep_mask_plain)
+    k2 = (K.batched_nms_keep, K.batched_nms_keep_plain)
     for n, max_keep in ((500, None), (6000, 300)):
         boxes = torch.from_numpy(
             np.stack([_sorted_boxes(rng, n) for _ in range(2)])).to(dev)
         valid = torch.from_numpy(rng.rand(2, n) > 0.1).to(dev)
         for plus_one, suppress_eq in ((False, False), (True, False),
                                       (True, True)):
-            kw = dict(plus_one=plus_one, suppress_eq=suppress_eq)
-            got = K.nms_keep_mask_batched(boxes, valid, 0.7,
-                                          max_keep=max_keep, **kw)
-            want = K.nms_keep_mask_plain(boxes, valid, 0.7,
-                                         max_keep=max_keep, **kw)
-            torch.cuda.synchronize()
-            assert torch.equal(got, want), (n, kw)
+            same(*k1, boxes, valid, 0.7, max_keep=max_keep,
+                 plus_one=plus_one, suppress_eq=suppress_eq)
     boxes = torch.from_numpy(
         np.stack([_sorted_boxes(rng, 300) for _ in range(160)])).to(dev)
     valid = torch.from_numpy(rng.rand(160, 300) > 0.1).to(dev)
-    got = K.batched_nms_keep(boxes, valid, 0.3, plus_one=True)
-    want = K.batched_nms_keep_plain(boxes, valid, 0.3, plus_one=True)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    assert K.launch_counts() == {"nms_keep_mask_batched": 6,
-                                 "batched_nms_keep": 1}
+    same(*k2, boxes, valid, 0.3, plus_one=True)
+    for name, boxes, valid, thresh, plus_one, suppress_eq in \
+            chip_smoke.edge_cases(rng):
+        boxes, valid = torch.from_numpy(boxes).to(dev), \
+            torch.from_numpy(valid).to(dev)
+        kw = dict(plus_one=plus_one, suppress_eq=suppress_eq)
+        for max_keep in (None, 40):
+            same(*k1, boxes, valid, thresh, max_keep=max_keep, **kw)
+        if boxes.shape[1] <= 1000:
+            same(*k2, boxes, valid, thresh, **kw)
+    same(*k1, *chip_smoke.train_shape_inputs(dev), 0.7, max_keep=2000)
+    same(*k2, *chip_smoke.coco_shape_inputs(dev), 0.3, plus_one=True)
+    assert K.launch_counts() == calls

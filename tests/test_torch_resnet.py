@@ -1,4 +1,5 @@
-"""The port's ResNet layers, head and tail against the JAX package.
+"""The port's ResNet layers, head and tail, its model spec and its own cfg
+copy, against the JAX package.
 
 Parameters are drawn with numpy by the port's init recipe
 (tf_faster_rcnn_torch/models/init.py::numpy_params), which replaces the
@@ -135,7 +136,7 @@ def test_bridge_fills_every_tensor(backbone):
                             jnp.zeros((1, 64, 64, 3)),
                             jnp.array([[64.0, 64.0, 1.0]]))
     sd = state_dict_from_flax(numpy_params(shapes, 0))
-    model = tnet.FasterRCNN(spec)
+    model = tnet.FasterRCNN(spec, device="cpu")
     want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     assert {k: tuple(v.shape) for k, v in sd.items()} == want
     model.load_state_dict(sd, strict=True)
@@ -143,11 +144,11 @@ def test_bridge_fills_every_tensor(backbone):
 
 def test_seeded_init_is_nonzero_and_keeps_activations_order_one():
     spec = _small_spec("res101")
-    model = tnet.FasterRCNN(spec).eval()
+    model = tnet.FasterRCNN(spec, device="cpu").eval()
     init_model(model, torch.Generator().manual_seed(0))
     for name, t in model.state_dict().items():
         assert float(t.abs().max()) > 0, name
-    again = tnet.FasterRCNN(spec)
+    again = tnet.FasterRCNN(spec, device="cpu")
     init_model(again, torch.Generator().manual_seed(0))
     for (name, a), b in zip(model.state_dict().items(),
                             again.state_dict().values()):
@@ -164,7 +165,7 @@ def test_canvas_invariance_nonzero_bn(rng):
     """The same image on two canvases gives the same proposals, scores and
     box deltas: masking keeps the padded margin out (BN shifts nonzero)."""
     spec = _small_spec("res50", 6)
-    model = tnet.FasterRCNN(spec).eval()
+    model = tnet.FasterRCNN(spec, device="cpu").eval()
     init_model(model, torch.Generator().manual_seed(1))
     content = (rng.randn(60, 90, 3) * 40).astype(np.float32)
     im_info = torch.tensor([[60.0, 90.0, 1.0]])
@@ -186,7 +187,7 @@ def test_canvas_invariance_nonzero_bn(rng):
 def test_unported_backbones_raise(backbone):
     spec = dataclasses.replace(_small_spec("res101"), backbone=backbone)
     with pytest.raises(NotImplementedError):
-        tnet.FasterRCNN(spec)
+        tnet.FasterRCNN(spec, device="cpu")
 
 
 def test_spec_defaults_are_the_cfg_defaults():
@@ -208,7 +209,77 @@ def test_spec_from_cfg_raises_on_train_and_unported_backbones():
     ("TPU", "COMPUTE_DTYPE", "bfloat16")])
 def test_spec_from_cfg_raises_on_unported_cfg(section, key, value):
     """The 'top' proposals, the s2d stem and bf16 compute are not ported."""
-    from tf_faster_rcnn_tpu.config import cfg
+    from tf_faster_rcnn_torch.config import cfg, reset_cfg
     cfg[section][key] = value
-    with pytest.raises(NotImplementedError):
-        tnet.spec_from_cfg("res101", 21, "TEST")
+    try:
+        with pytest.raises(NotImplementedError):
+            tnet.spec_from_cfg("res101", 21, "TEST")
+    finally:
+        reset_cfg()
+
+
+def _same_tree(port, ref, path=""):
+    """Every key of the port's tree is in the reference's, with an equal
+    value of the same type (each package has its own AttrDict)."""
+    for key, value in port.items():
+        assert key in ref, path + key
+        want = ref[key]
+        if isinstance(value, dict):
+            assert isinstance(want, dict), path + key
+            _same_tree(value, want, path + key + ".")
+            continue
+        assert type(value) is type(want), (path + key, value, want)
+        if isinstance(value, np.ndarray):
+            assert value.dtype == want.dtype, path + key
+            np.testing.assert_array_equal(value, want, err_msg=path + key)
+        else:
+            assert value == want, (path + key, value, want)
+
+
+def test_port_cfg_defaults_are_the_reference_defaults():
+    """The port's own copy of the default cfg equals the JAX package's at
+    every key it copies, and the two merge a YAML override alike."""
+    from tf_faster_rcnn_torch import config as tcfg
+    from tf_faster_rcnn_tpu import config as jcfg
+    tcfg.reset_cfg()
+    _same_tree(tcfg.cfg, jcfg.cfg)
+    args = ["TEST.RPN_POST_NMS_TOP_N", "100", "TEST.NMS", "0.4",
+            "ANCHOR_SCALES", "[4, 8, 16, 32]", "TPU.RPN_NMS_CAP", "64"]
+    try:
+        tcfg.cfg_from_list(args)
+        jcfg.cfg_from_list(args)
+        _same_tree(tcfg.cfg, jcfg.cfg)
+    finally:
+        tcfg.reset_cfg()
+
+
+@pytest.mark.parametrize("name", ["res101", "res101-lg", "res50", "vgg16",
+                                  "mobile", "mobile-lg"])
+def test_port_cfg_from_file_matches_the_reference(name):
+    """Each of the repo's experiment YAMLs merges into the port's cfg as it
+    merges into the JAX package's."""
+    import os.path as osp
+    from tf_faster_rcnn_torch import config as tcfg
+    from tf_faster_rcnn_tpu import config as jcfg
+    path = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))),
+                    "experiments", "cfgs", name + ".yml")
+    try:
+        tcfg.cfg_from_file(path)
+        jcfg.cfg_from_file(path)
+        _same_tree(tcfg.cfg, jcfg.cfg)
+    finally:
+        tcfg.reset_cfg()
+
+
+def test_model_builds_on_the_card_by_default():
+    """FasterRCNN(spec) builds on the CUDA device and raises where there is
+    none; device='cpu' builds on the CPU."""
+    spec = _small_spec("res50", 4)
+    if torch.cuda.is_available():
+        model = tnet.FasterRCNN(spec)
+        assert next(model.parameters()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tnet.FasterRCNN(spec)
+    model = tnet.FasterRCNN(spec, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}

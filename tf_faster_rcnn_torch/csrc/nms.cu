@@ -1,235 +1,359 @@
-// Exact greedy NMS for Hopper (sm_90a): the two kernels of the detect path.
+// Exact greedy NMS for Hopper (sm_90a): one engine for the two kernels of
+// the detect path.
 //
-// K1  frcnn_nms_keep_mask   replaces tf_faster_rcnn_tpu/ops/pallas_nms.py
-//                           _nms_kernel / pallas_nms_keep_mask: one keep mask
-//                           per image over N score-sorted boxes, for all B
-//                           images of a step in one call (RPN proposals).
-// K2  frcnn_batched_nms_keep replaces _batched_nms_kernel /
-//                           pallas_batched_nms_keep: G independent instances
-//                           in one launch (per-class detection NMS).
+// K1  frcnn_nms_keep (max_keep >= 1) replaces tf_faster_rcnn_tpu/ops/
+//     pallas_nms.py _nms_kernel / pallas_nms_keep_mask: one keep mask per
+//     image over N score-sorted boxes, all B images of a step in one call,
+//     stopping at max_keep survivors (RPN proposals).
+// K2  frcnn_nms_keep (no cap) replaces _batched_nms_kernel /
+//     pallas_batched_nms_keep: G independent instances in one launch
+//     (per-class detection NMS).
 //
-// The IoU test is the JAX formula operation for operation
-// (pallas_nms.py::_iou_tile, ops/boxes.py::bbox_overlaps), so the boolean
-// masks are bit-identical to the reference. That holds only without FMA
-// contraction: build with -fmad=false, never with --use_fast_math (the
-// division must stay IEEE).
+// The masks are bit-identical to the reference's. The IoU is the JAX
+// formula operation for operation (pallas_nms.py::_iou_tile): inter, the
+// areas and uni round exactly as there, which needs -fmad=false and no
+// --use_fast_math. The threshold test on inter / uni is decided exactly
+// without the division (Threshold below), or by the IEEE division.
 //
-// A launcher returns cudaGetLastError() after its launches; it allocates
+// What bounds it on this card. The work is a chain: box i's fate depends on
+// every kept box before it. The IoU tests the answer needs are few (each
+// box against the kept boxes before it, and only up to E, the index of the
+// max_keep-th keep: E = 1298-1996 of N = 6000 on the RPN's boxes), so the
+// time is the chain's latency, not operations or bytes. The design keeps
+// device memory off that chain and does no IoU test the answer cannot use:
+//
+// * One CTA per instance; the boxes kept so far sit in shared memory, in
+//   order (at most min(max_keep, N) of them; past 11,467 in device memory).
+// * Block-serial over row blocks of 64 boxes, two CTA barriers a block.
+//   Pull: each warp takes boxes of block j and tests one against 64 kept
+//   boxes at a time, stopping at the first hit, which sets its `removed`
+//   bit; a box that survives gets its in-block mask (`sup`, the boxes
+//   before it in the block that would suppress it). Resolve: one warp
+//   solves a = cand & ~(sup^T a), cand = valid & ~removed, the greedy
+//   answer, in as many ballot rounds as the block's longest suppression
+//   chain, keeps its first max_keep - total boxes and appends them. Block
+//   j + 2's boxes are loaded from device memory while block j is pulled,
+//   so no load waits on the chain.
+// * Once max_keep boxes are kept, the loop stops: no later box is tested
+//   and their keep bytes are written 0 (the prefix contract of
+//   ops/nms.py::nms_keep_mask).
+//
+// The launcher returns cudaGetLastError() after its launch; it allocates
 // nothing and never synchronises.
 
 #include <cuda_runtime.h>
 
+#include <cfloat>
+#include <cmath>
 #include <cstddef>
+#include <cstring>
 
 namespace {
 
-constexpr int kTile = 64;  // boxes per suppression word (one uint64)
+constexpr int kTile = 64;           // boxes per row block (one uint64 word)
+constexpr int kUnroll = 2;          // kept boxes a lane tests per step
+constexpr int kSms = 132;           // SMs of an H100 SXM
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a CTA may use
 
-__device__ __forceinline__ bool suppresses(float4 a, float4 b, float e,
-                                           float thresh, bool suppress_eq) {
-  const float iw = fmaxf(fminf(a.z, b.z) - fmaxf(a.x, b.x) + e, 0.0f);
-  const float ih = fmaxf(fminf(a.w, b.w) - fmaxf(a.y, b.y) + e, 0.0f);
+typedef unsigned long long u64;
+
+// Shared memory: the kept boxes and areas (20 bytes each), and the rest.
+constexpr int kBytesPerKept = sizeof(float4) + sizeof(float);
+constexpr int kBytesFixed = 2 * kTile * (sizeof(float4) + sizeof(float))
+                            + kTile * sizeof(u64) + 8 * sizeof(unsigned);
+
+// The threshold test `iou over thresh` of the reference, where
+// iou = uni > 0 ? fl(inter / uni) : 0.
+//
+// * inter not > 0 (+0, or NaN from 0 * inf), or uni not > 0: iou is 0, so
+//   the answer is `zero_over` and nothing is divided (the quick reject).
+// * Otherwise fl(q) >= t is fl(q) > prev(t), so both conventions are
+//   fl(q) > T. For 0 <= T < FLT_MAX and U = next(T), round-to-nearest-even
+//   gives fl(q) > T iff q > m = (T + U) / 2, or q == m and U is even. m
+//   has at most 25 significant bits and uni 24, so m * uni is exact in
+//   double, and q > m is inter > m * uni: no division, the same bit.
+// * Any other T (a threshold <= 0 with >=, or not finite): the division.
+// * Before the double products, a float pre-test settles all but the
+//   pairs within about 2^-20 of the boundary: with pf = fl(T * uni) normal
+//   and mg = fl(T * 2^-20 * uni), d = fl(inter - pf) > mg implies
+//   inter > T * uni * (1 + 2^-23) >= m * uni, and d < -mg implies
+//   inter < T * uni <= m * uni, counting every rounding error.
+struct Threshold {
+  float e;          // 1 for the +1-width IoU, else 0
+  float thresh;
+  int suppress_eq;  // >= instead of >
+  int zero_over;    // is an IoU of 0 over the threshold?
+  int exact;        // decide by m, tie_up
+  double m;
+  int tie_up;
+  int filter;       // T >= 2^-80: the float pre-test first
+  float t;          // T
+  float margin;     // T * 2^-20
+};
+
+__device__ __forceinline__ bool suppresses(float4 a, float aa, float4 b,
+                                           float ab, const Threshold& th) {
+  const float iw = fmaxf(fminf(a.z, b.z) - fmaxf(a.x, b.x) + th.e, 0.0f);
+  const float ih = fmaxf(fminf(a.w, b.w) - fmaxf(a.y, b.y) + th.e, 0.0f);
   const float inter = iw * ih;
-  const float area_a = (a.z - a.x + e) * (a.w - a.y + e);
-  const float area_b = (b.z - b.x + e) * (b.w - b.y + e);
-  const float uni = area_a + area_b - inter;
-  const float iou = uni > 0.0f ? inter / uni : 0.0f;
-  return suppress_eq ? iou >= thresh : iou > thresh;
-}
-
-// K1, pass 1. Grid (column block, row block, image), 64 threads. Thread t
-// tests row box i = 64*row_block + t against the 64 column boxes staged in
-// shared memory and writes one word: bit j set iff box i would suppress
-// column box 64*col_block + j (> i). Words left of the diagonal are never
-// read by the scan, so they are not written.
-//
-// Bound on this card: N^2/2 IoU tests (18M at N = 6000, B = 8 -> 144M per
-// step) and an N x N/64 word matrix (4.5 MB per image) written once and read
-// back only for kept rows; both fit the 50 MB L2. The tile keeps the column
-// boxes in shared memory, so each IoU costs no device-memory traffic.
-__global__ void __launch_bounds__(kTile)
-nms_mask_kernel(const float4* __restrict__ boxes, int n, int col_blocks,
-                float e, float thresh, int suppress_eq,
-                unsigned long long* __restrict__ mask) {
-  const int img = blockIdx.z;
-  const int row_block = blockIdx.y;
-  const int col_block = blockIdx.x;
-  if (col_block < row_block) return;
-  const float4* b = boxes + static_cast<size_t>(img) * n;
-  const int row_size = min(n - row_block * kTile, kTile);
-  const int col_size = min(n - col_block * kTile, kTile);
-
-  __shared__ float4 cols[kTile];
-  if (threadIdx.x < col_size) cols[threadIdx.x] = b[col_block * kTile + threadIdx.x];
-  __syncthreads();
-  if (threadIdx.x >= row_size) return;
-
-  const int i = row_block * kTile + threadIdx.x;
-  const float4 r = b[i];
-  unsigned long long bits = 0ULL;
-  const int start = row_block == col_block ? threadIdx.x + 1 : 0;
-  for (int j = start; j < col_size; ++j) {
-    if (suppresses(r, cols[j], e, thresh, suppress_eq != 0)) bits |= 1ULL << j;
-  }
-  mask[(static_cast<size_t>(img) * n + i) * col_blocks + col_block] = bits;
-}
-
-// K1, pass 2: the greedy scan, one warp per image, on the device so the step
-// never waits on the host. Lane l holds the `removed` words l, l+32, ... in
-// registers (WPL words per lane). Validity arrives 32 boxes at a time as one
-// ballot, so invalid boxes cost no step. For box i the owner lane's word is
-// broadcast with a shuffle; a kept box ORs its mask row into every lane's
-// words. The scan stops once max_keep boxes are kept and writes keep = 0 for
-// every later box (the prefix contract of ops/nms.py::nms_keep_mask).
-//
-// Bound: a chain of N dependent steps (latency, not bandwidth); each kept
-// box adds one row read of col_blocks words, mostly from L2.
-template <int WPL>
-__global__ void __launch_bounds__(32)
-nms_scan_kernel(const unsigned long long* __restrict__ mask,
-                const unsigned char* __restrict__ valid, int n, int col_blocks,
-                int max_keep, unsigned char* __restrict__ keep) {
-  const int img = blockIdx.x;
-  const int lane = threadIdx.x;
-  const unsigned long long* m = mask + static_cast<size_t>(img) * n * col_blocks;
-  const unsigned char* v = valid + static_cast<size_t>(img) * n;
-  unsigned char* k = keep + static_cast<size_t>(img) * n;
-
-  unsigned long long removed[WPL];
-#pragma unroll
-  for (int s = 0; s < WPL; ++s) removed[s] = 0ULL;
-
-  int kept = 0;
-  for (int base = 0; base < n; base += 32) {
-    const int idx = base + lane;
-    unsigned todo = __ballot_sync(0xffffffffu, idx < n && v[idx] != 0 && kept < max_keep);
-    unsigned kbits = 0u;
-    while (todo != 0u) {
-      const int t = __ffs(todo) - 1;
-      todo &= todo - 1u;
-      const int i = base + t;
-      const int w = i >> 6;
-      unsigned long long mine = 0ULL;
-#pragma unroll
-      for (int s = 0; s < WPL; ++s) {
-        if (s == (w >> 5)) mine = removed[s];
-      }
-      const unsigned long long word = __shfl_sync(0xffffffffu, mine, w & 31);
-      if ((word >> (i & 63)) & 1ULL) continue;
-      kbits |= 1u << t;
-      if (++kept == max_keep) break;
-      const unsigned long long* row = m + static_cast<size_t>(i) * col_blocks;
-#pragma unroll
-      for (int s = 0; s < WPL; ++s) {
-        const int ww = lane + 32 * s;
-        if (ww >= w && ww < col_blocks) removed[s] |= row[ww];
+  if (!(inter > 0.0f)) return th.zero_over;
+  const float uni = aa + ab - inter;
+  if (!(uni > 0.0f)) return th.zero_over;
+  if (th.exact) {
+    if (th.filter) {
+      const float pf = th.t * uni;
+      if (pf >= 0x1p-100f) {
+        const float d = inter - pf;
+        const float mg = th.margin * uni;
+        if (d > mg) return true;
+        if (d < -mg) return false;
       }
     }
-    if (idx < n) k[idx] = static_cast<unsigned char>((kbits >> lane) & 1u);
+    const double p = th.m * static_cast<double>(uni);
+    const double in = static_cast<double>(inter);
+    return in > p || (in == p && th.tie_up);
   }
+  const float iou = inter / uni;
+  return th.suppress_eq ? iou >= th.thresh : iou > th.thresh;
 }
 
-// K2: one CTA per instance. The instance's boxes and alive flags sit in
-// shared memory (17 bytes a box: 17 KB at N = 1000). A sequential sweep over
-// i; when box i is alive, the threads stride over j > i and clear alive[j]
-// where row i suppresses it: _batched_nms_kernel's rule exactly
-// (pallas_nms.py:172-187). alive[i] is settled by the time the sweep reaches
-// i, so the branch is uniform and only alive rows pay a barrier.
-//
-// Bound: N sequential steps per instance (latency); the IoU work per step is
-// N/blockDim tests per thread from shared memory. G = 160 instances fill the
-// 132 SMs in one wave.
-__global__ void batched_nms_kernel(const float4* __restrict__ boxes,
-                                   const unsigned char* __restrict__ valid,
-                                   int n, float e, float thresh, int suppress_eq,
-                                   unsigned char* __restrict__ keep) {
-  extern __shared__ float4 smem[];
-  float4* sb = smem;
-  unsigned char* alive = reinterpret_cast<unsigned char*>(sb + n);
-  const size_t off = static_cast<size_t>(blockIdx.x) * n;
+__device__ __forceinline__ float area(float4 b, float e) {
+  return (b.z - b.x + e) * (b.w - b.y + e);
+}
 
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    sb[j] = boxes[off + j];
-    alive[j] = valid[off + j] != 0;
+// One CTA of kThreads per instance (blockIdx.x). The cap = min(max_keep, n)
+// kept boxes live in shared memory, or with kSpill in `spill` ([groups, cap]
+// boxes, then [groups, cap] areas), where they do not fit.
+template <int kThreads, bool kSpill>
+__global__ void __launch_bounds__(kThreads)
+nms_keep_kernel(const float4* __restrict__ boxes,
+                const unsigned char* __restrict__ valid, int n, Threshold th,
+                int max_keep, int cap, float4* spill,
+                unsigned char* __restrict__ keep) {
+  constexpr int kWarps = kThreads / 32;
+  const size_t base = static_cast<size_t>(blockIdx.x) * n;
+  const int nb = (n + kTile - 1) / kTile;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  extern __shared__ float4 smem[];
+  const int held = kSpill ? 0 : cap;                    // kept boxes in smem
+  float4* cbox = smem + held;                           // [2][64] block boxes
+  u64* sup = reinterpret_cast<u64*>(cbox + 2 * kTile);  // [64] in-block masks
+  float* carea = reinterpret_cast<float*>(sup + kTile);  // [2][64]
+  float4* kbox = kSpill ? spill + static_cast<size_t>(blockIdx.x) * cap : smem;
+  float* karea = kSpill ? reinterpret_cast<float*>(spill + static_cast<size_t>(gridDim.x) * cap) +
+                              static_cast<size_t>(blockIdx.x) * cap
+                        : carea + 2 * kTile;            // [cap] kept, in order
+  unsigned* cvalid = reinterpret_cast<unsigned*>(carea + 2 * kTile + held);  // [2][2]
+  unsigned* removed = cvalid + 4;                       // [2]
+  int* kept_total = reinterpret_cast<int*>(removed + 2);
+
+  // Stage block 0; warps 0 and 1 hold one box a thread.
+  if (tid < kTile) {
+    float4 b = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    bool v = false;
+    if (tid < n) {
+      b = boxes[base + tid];
+      v = valid[base + tid] != 0;
+    }
+    cbox[tid] = b;
+    carea[tid] = area(b, th.e);
+    const unsigned bits = __ballot_sync(0xffffffffu, v);
+    if (lane == 0) cvalid[tid >> 5] = bits;
+    if (tid < 2) removed[tid] = 0u;
+  }
+  // Block j + 1 is loaded while block j - 1 is pulled, so its loads have a
+  // whole block's time to land before it is staged.
+  float4 next = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  bool next_valid = false;
+  if (tid < kTile && kTile + tid < n) {
+    next = boxes[base + kTile + tid];
+    next_valid = valid[base + kTile + tid] != 0;
   }
   __syncthreads();
-  for (int i = 0; i < n; ++i) {
-    if (!alive[i]) continue;
-    const float4 r = sb[i];
-    for (int j = i + 1 + threadIdx.x; j < n; j += blockDim.x) {
-      if (alive[j] && suppresses(r, sb[j], e, thresh, suppress_eq != 0)) alive[j] = 0;
+
+  int total = 0;   // boxes kept so far
+  int done = nb;   // blocks >= done are never resolved
+  for (int j = 0; j < nb; ++j) {
+    const int buf = j & 1;
+    const float4* cb = cbox + buf * kTile;
+    const float* ca = carea + buf * kTile;
+
+    // Pull: warp w takes boxes c = w, w + kWarps, ...; its lanes test box c
+    // against 32 * kUnroll kept boxes at a time and stop at the first hit.
+    // A box that survives gets its in-block mask: bit t of sup[c] iff box
+    // t < c of the block suppresses it.
+    for (int c = warp; c < kTile; c += kWarps) {
+      if (!((cvalid[2 * buf + (c >> 5)] >> (c & 31)) & 1u)) continue;
+      const float4 b = cb[c];
+      const float a = ca[c];
+      bool hit = false;
+      for (int m0 = 0; m0 < total && !hit; m0 += 32 * kUnroll) {
+        bool h = false;
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int m = m0 + 32 * u + lane;
+          h |= m < total && suppresses(kbox[m], karea[m], b, a, th);
+        }
+        hit = __any_sync(0xffffffffu, h);
+      }
+      if (hit) {
+        if (lane == 0) atomicOr(&removed[c >> 5], 1u << (c & 31));
+        continue;
+      }
+      const bool lo = lane < c && suppresses(cb[lane], ca[lane], b, a, th);
+      const bool hi = lane + 32 < c && suppresses(cb[lane + 32], ca[lane + 32], b, a, th);
+      const unsigned mlo = __ballot_sync(0xffffffffu, lo);
+      const unsigned mhi = __ballot_sync(0xffffffffu, hi);
+      if (lane == 0) sup[c] = (static_cast<u64>(mhi) << 32) | mlo;
+    }
+    if (tid < kTile) {
+      cbox[(buf ^ 1) * kTile + tid] = next;
+      carea[(buf ^ 1) * kTile + tid] = area(next, th.e);
+      const unsigned vbits = __ballot_sync(0xffffffffu, next_valid);
+      if (lane == 0) cvalid[2 * (buf ^ 1) + (tid >> 5)] = vbits;
+      next = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      next_valid = false;
+      const int i_next = (j + 2) * kTile + tid;
+      if (i_next < n) {
+        next = boxes[base + i_next];
+        next_valid = valid[base + i_next] != 0;
+      }
     }
     __syncthreads();
+
+    if (tid < 32) {
+      // Resolve block j: the greedy answer is the one fixed point of
+      // a = cand & ~(sup^T a), since sup[t] holds only boxes before t; from
+      // a = cand each round fixes at least one more box, and a round that
+      // changes nothing ends it. Lane l holds boxes l and l + 32.
+      const u64 cand = ((static_cast<u64>(cvalid[2 * buf + 1]) << 32) | cvalid[2 * buf]) &
+                       ~((static_cast<u64>(removed[1]) << 32) | removed[0]);
+      const bool c0 = (cand >> lane) & 1ULL;
+      const bool c1 = (cand >> (lane + 32)) & 1ULL;
+      const u64 s0 = c0 ? sup[lane] : 0ULL;
+      const u64 s1 = c1 ? sup[lane + 32] : 0ULL;
+      u64 kept = cand;
+      for (;;) {
+        const u64 next_kept =
+            (static_cast<u64>(__ballot_sync(0xffffffffu, c1 && !(s1 & kept))) << 32) |
+            __ballot_sync(0xffffffffu, c0 && !(s0 & kept));
+        if (next_kept == kept) break;
+        kept = next_kept;
+      }
+      // the cap: only the first max_keep - total of them
+      while (__popcll(kept) > max_keep - total) kept &= ~(1ULL << (63 - __clzll(kept)));
+      for (int h = 0; h < 2; ++h) {
+        const int t = lane + 32 * h;
+        const int i = j * kTile + t;
+        if (i < n) keep[base + i] = static_cast<unsigned char>((kept >> t) & 1ULL);
+        if ((kept >> t) & 1ULL) {
+          const int pos = total + __popcll(kept & ((1ULL << t) - 1ULL));
+          kbox[pos] = cb[t];
+          karea[pos] = ca[t];
+        }
+      }
+      if (lane < 2) removed[lane] = 0u;
+      if (lane == 0) *kept_total = total + __popcll(kept);
+    }
+    __syncthreads();
+    total = *kept_total;
+    if (total >= max_keep) {
+      done = j + 1;
+      break;
+    }
   }
-  for (int j = threadIdx.x; j < n; j += blockDim.x) keep[off + j] = alive[j];
+
+  // keep = 0 for every box of a block never resolved
+  for (int i = done * kTile + tid; i < n; i += kThreads) keep[base + i] = 0;
 }
 
-template <int WPL>
-cudaError_t launch_scan(const unsigned long long* mask, const unsigned char* valid,
-                        int batch, int n, int col_blocks, int max_keep,
-                        unsigned char* keep, cudaStream_t stream) {
-  nms_scan_kernel<WPL><<<batch, 32, 0, stream>>>(mask, valid, n, col_blocks,
-                                                   max_keep, keep);
+Threshold make_threshold(float thresh, int plus_one, int suppress_eq) {
+  Threshold th;
+  th.e = plus_one ? 1.0f : 0.0f;
+  th.thresh = thresh;
+  th.suppress_eq = suppress_eq;
+  th.zero_over = suppress_eq ? 0.0f >= thresh : 0.0f > thresh;
+  const float t = suppress_eq ? nextafterf(thresh, -INFINITY) : thresh;
+  th.exact = t >= 0.0f && t < FLT_MAX;
+  th.m = 0.0;
+  th.tie_up = 0;
+  th.filter = th.exact && t >= 0x1p-80f;
+  th.t = t;
+  th.margin = t * 0x1p-20f;
+  if (th.exact) {
+    const float u = nextafterf(t, INFINITY);
+    unsigned bits;
+    std::memcpy(&bits, &u, sizeof bits);
+    th.m = (static_cast<double>(t) + static_cast<double>(u)) * 0.5;
+    th.tie_up = (bits & 1u) == 0u;
+  }
+  return th;
+}
+
+template <int kThreads, bool kSpill>
+cudaError_t launch(const float4* boxes, const unsigned char* valid, int groups,
+                   int n, const Threshold& th, int max_keep, int cap,
+                   float4* spill, unsigned char* keep, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(kSpill ? 0 : cap) * kBytesPerKept + kBytesFixed;
+  // Set once per size, so that a launch inside CUDA-graph capture makes no
+  // other API call.
+  static size_t smem_allowed = 48 * 1024;
+  if (smem > smem_allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        nms_keep_kernel<kThreads, kSpill>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    smem_allowed = smem;
+  }
+  nms_keep_kernel<kThreads, kSpill><<<groups, kThreads, smem, stream>>>(
+      boxes, valid, n, th, max_keep, cap, spill, keep);
   return cudaGetLastError();
+}
+
+template <int kThreads>
+cudaError_t launch(const float4* boxes, const unsigned char* valid, int groups,
+                   int n, const Threshold& th, int max_keep, int cap,
+                   float4* spill, unsigned char* keep, cudaStream_t stream) {
+  if (spill != nullptr)
+    return launch<kThreads, true>(boxes, valid, groups, n, th, max_keep, cap,
+                                  spill, keep, stream);
+  return launch<kThreads, false>(boxes, valid, groups, n, th, max_keep, cap,
+                                 nullptr, keep, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest N frcnn_nms_keep_mask takes: 16 words per lane x 32 lanes x 64.
-int frcnn_nms_max_boxes() { return 16 * 32 * kTile; }
-
-// boxes [batch, n, 4] f32 (16-byte aligned), valid/keep [batch, n] bytes,
-// mask scratch [batch, n, ceil(n/64)] uint64. max_keep >= 1.
-int frcnn_nms_keep_mask(const void* boxes, const void* valid, int batch, int n,
-                        float thresh, int plus_one, int suppress_eq,
-                        int max_keep, void* mask, void* keep, void* stream) {
-  if (batch <= 0 || n <= 0) return 0;
-  if (n > frcnn_nms_max_boxes() || max_keep < 1) return cudaErrorInvalidValue;
-  const int col_blocks = (n + kTile - 1) / kTile;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float e = plus_one ? 1.0f : 0.0f;
-  auto* words = static_cast<unsigned long long*>(mask);
-
-  const dim3 grid(col_blocks, col_blocks, batch);
-  nms_mask_kernel<<<grid, kTile, 0, s>>>(static_cast<const float4*>(boxes), n,
-                                         col_blocks, e, thresh, suppress_eq, words);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const auto* v = static_cast<const unsigned char*>(valid);
-  auto* k = static_cast<unsigned char*>(keep);
-  const int wpl = (col_blocks + 31) / 32;
-  if (wpl <= 1) return launch_scan<1>(words, v, batch, n, col_blocks, max_keep, k, s);
-  if (wpl <= 2) return launch_scan<2>(words, v, batch, n, col_blocks, max_keep, k, s);
-  if (wpl <= 4) return launch_scan<4>(words, v, batch, n, col_blocks, max_keep, k, s);
-  if (wpl <= 8) return launch_scan<8>(words, v, batch, n, col_blocks, max_keep, k, s);
-  return launch_scan<16>(words, v, batch, n, col_blocks, max_keep, k, s);
-}
-
-// Largest N frcnn_batched_nms_keep takes: 17 bytes a box in 227 KB.
-int frcnn_batched_nms_max_boxes() { return 232448 / 17; }
+// Most boxes an instance may keep (min(max_keep, N)) in one CTA's shared
+// memory, at 20 bytes each; past it the caller passes spill scratch.
+int frcnn_nms_max_kept() { return (kSmemLimit - kBytesFixed) / kBytesPerKept; }
 
 // boxes [groups, n, 4] f32 (16-byte aligned), valid/keep [groups, n] bytes.
-int frcnn_batched_nms_keep(const void* boxes, const void* valid, int groups,
-                           int n, float thresh, int plus_one, int suppress_eq,
-                           void* keep, void* stream) {
+// Each instance keeps at most max_keep boxes (>= 1); pass n or more for no
+// cap. spill: NULL, or where min(max_keep, n) > frcnn_nms_max_kept(),
+// 20 * groups * min(max_keep, n) bytes of device scratch, 16-byte aligned.
+// Few instances get CTAs of 1024 threads, many get smaller ones, so that
+// all of them fit on the 132 SMs at once where they can.
+int frcnn_nms_keep(const void* boxes, const void* valid, int groups, int n,
+                   float thresh, int plus_one, int suppress_eq, int max_keep,
+                   void* spill, void* keep, void* stream) {
   if (groups <= 0 || n <= 0) return 0;
-  if (n > frcnn_batched_nms_max_boxes()) return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(n) * (sizeof(float4) + 1);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        batched_nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const int threads = n >= 256 ? 256 : ((n + 31) / 32) * 32;
-  batched_nms_kernel<<<groups, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(boxes), static_cast<const unsigned char*>(valid),
-      n, plus_one ? 1.0f : 0.0f, thresh, suppress_eq,
-      static_cast<unsigned char*>(keep));
-  return cudaGetLastError();
+  const int cap = max_keep < n ? max_keep : n;
+  if (max_keep < 1 || ((cap > frcnn_nms_max_kept()) != (spill != nullptr)))
+    return cudaErrorInvalidValue;
+  auto* sp = static_cast<float4*>(spill);
+  const auto* b = static_cast<const float4*>(boxes);
+  const auto* v = static_cast<const unsigned char*>(valid);
+  auto* k = static_cast<unsigned char*>(keep);
+  const Threshold th = make_threshold(thresh, plus_one, suppress_eq);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (groups <= kSms) return launch<1024>(b, v, groups, n, th, max_keep, cap, sp, k, s);
+  if (groups <= 2 * kSms) return launch<512>(b, v, groups, n, th, max_keep, cap, sp, k, s);
+  return launch<256>(b, v, groups, n, th, max_keep, cap, sp, k, s);
 }
 
 }  // extern "C"

@@ -65,10 +65,10 @@ class ModelSpec:
 
 
 def spec_from_cfg(backbone: str, num_classes: int, mode: str) -> ModelSpec:
-    """Snapshot the global cfg (tf_faster_rcnn_tpu.config, free of JAX).
+    """Snapshot the port's global cfg (``tf_faster_rcnn_torch/config.py``).
     The detect path itself never reads cfg: a ModelSpec built directly, with
     its defaults (the cfg defaults), runs without the config module."""
-    from tf_faster_rcnn_tpu.config import cfg
+    from tf_faster_rcnn_torch.config import cfg
     if mode != "TEST":
         raise NotImplementedError(f"mode {mode!r}: TRAIN is {_TODO}")
     if cfg.TEST.MODE != "nms":
@@ -119,11 +119,21 @@ class FasterRCNN(nn.Module):
     Submodule names follow the flax ones: ``head``, ``rpn_conv``,
     ``rpn_cls_score``, ``rpn_bbox_pred``, ``tail``, ``cls_score``,
     ``bbox_pred``.
+
+    The parameters are built on ``device``: the CUDA device when it is None,
+    and a RuntimeError when there is none (nothing falls back to the CPU);
+    the CPU only when asked for (``device="cpu"``).
     """
 
-    def __init__(self, spec: ModelSpec):
+    def __init__(self, spec: ModelSpec, device=None):
         super().__init__()
         _check_supported(spec)
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "FasterRCNN builds on the CUDA device by default and "
+                    "torch finds none; pass device='cpu' to build on the CPU")
+            device = "cuda"
         self.spec = spec
         depth = int(spec.backbone[3:])
         a = spec.num_anchors
@@ -135,6 +145,7 @@ class FasterRCNN(nn.Module):
         self.cls_score = nn.Linear(2048, spec.num_classes)
         self.bbox_pred = nn.Linear(2048, 4 * spec.num_classes)
         self._anchors = {}
+        self.to(device)
 
     def anchors(self, fh: int, fw: int, device) -> torch.Tensor:
         """The [fh*fw*A, 4] anchor grid on device, built once per shape."""

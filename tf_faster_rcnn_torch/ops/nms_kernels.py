@@ -1,23 +1,22 @@
-"""Wrappers of the two CUDA NMS kernels, and their plain PyTorch versions.
+"""Wrappers of the CUDA NMS kernels, and their plain PyTorch versions.
 
-Kernel sources: ``tf_faster_rcnn_torch/csrc/nms.cu``, built by
+Kernel source: ``tf_faster_rcnn_torch/csrc/nms.cu``, built by
 ``utils/build.py``. Each wrapper checks its inputs and raises on what the
 kernel does not take. A tensor on the CPU goes to the plain version; a CUDA
 tensor goes to the kernel, launched on the current stream, and a nonzero
 ``cudaGetLastError()`` raises. Nothing falls back from one to the other.
 
 K1 ``nms_keep_mask_batched`` replaces ``_nms_kernel`` /
-``pallas_nms_keep_mask`` (tf_faster_rcnn_tpu/ops/pallas_nms.py). On this card
-it is bound by its N^2/2 IoU tests and the serial greedy chain. Its design: a
-64x64-tiled mask pass writes one uint64 suppression word per (box, column
-block), all B images in one grid; a one-warp-per-image scan walks the chain
-with the `removed` bits in registers and stops at ``max_keep`` survivors. The
-step thus never syncs with the host.
-
-K2 ``batched_nms_keep`` replaces ``_batched_nms_kernel`` /
-``pallas_batched_nms_keep``. It is bound by N serial steps per instance. One
-CTA per instance keeps boxes and alive flags in shared memory; G = 160
-instances fill the card in one wave.
+``pallas_nms_keep_mask`` (tf_faster_rcnn_tpu/ops/pallas_nms.py); K2
+``batched_nms_keep`` replaces ``_batched_nms_kernel`` /
+``pallas_batched_nms_keep``. Both launch one engine, ``frcnn_nms_keep``:
+one CTA per instance (an image's boxes for K1, a class's for K2), which
+walks the boxes in blocks of 64 and tests each block only against the boxes
+kept so far, held in shared memory. K1 stops at ``max_keep`` survivors, so
+it tests no box past the last one it keeps; K2 runs without a cap. On this
+card both are bound by the length of that serial chain, not by operations
+or bytes (csrc/nms.cu says why). All B images, or all G instances, go in
+one launch, with no host sync.
 
 Each wrapper counts its kernel launches in a plain integer attribute,
 ``<wrapper>.launches``; the plain versions count nothing.
@@ -33,7 +32,6 @@ __all__ = ["nms_keep_mask_batched", "batched_nms_keep",
            "nms_keep_mask_plain", "batched_nms_keep_plain",
            "reset_launch_counts", "launch_counts"]
 
-_TILE = 64      # boxes per suppression word of K1
 _BLOCK = 128    # row block of the plain K1, as in ops/nms.py
 
 
@@ -60,11 +58,38 @@ def _check(boxes, valid, name):
                          "must start on a 16-byte boundary")
 
 
-def _launch(fn, name, *args):
-    err = fn(*args)
+def _launch_keep(wrapper, boxes, valid, thresh, plus_one, suppress_eq,
+                 max_keep):
+    """keep [G, N] from one launch of frcnn_nms_keep, at most max_keep boxes
+    kept per instance; counts the launch on ``wrapper.launches`` (an empty
+    input launches nothing)."""
+    from tf_faster_rcnn_torch.utils.build import get_lib
+    name = wrapper.__name__
+    lib = get_lib()
+    g, n = valid.shape
+    keep = torch.empty((g, n), dtype=torch.bool, device=boxes.device)
+    if g == 0 or n == 0:
+        return keep
+    max_keep = min(max_keep, 2**31 - 1)
+    # the kept boxes of an instance sit in shared memory, or, past what it
+    # holds, in this scratch (a box and its area: 5 floats each)
+    cap = min(max_keep, n)
+    spill = None
+    if cap > lib.frcnn_nms_max_kept():
+        spill = torch.empty((5 * g * cap,), dtype=torch.float32,
+                            device=boxes.device)
+    with torch.cuda.device(boxes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.frcnn_nms_keep(boxes.data_ptr(), valid.data_ptr(), g, n,
+                                 float(thresh), int(plus_one),
+                                 int(suppress_eq), max_keep,
+                                 None if spill is None else spill.data_ptr(),
+                                 keep.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "
                            f"cudaError {err}")
+    wrapper.launches += 1
+    return keep
 
 
 def _over(iou, thresh, suppress_eq):
@@ -113,27 +138,10 @@ def nms_keep_mask_batched(boxes, valid, thresh, *, plus_one=False,
     if boxes.device.type == "cpu":
         return nms_keep_mask_plain(boxes, valid, thresh, plus_one=plus_one,
                                    suppress_eq=suppress_eq, max_keep=max_keep)
-    from tf_faster_rcnn_torch.utils.build import get_lib
-    lib = get_lib()
-    b, n = valid.shape
-    if n > lib.frcnn_nms_max_boxes():
-        raise ValueError(f"nms_keep_mask_batched: N={n} exceeds the "
-                         f"kernel's {lib.frcnn_nms_max_boxes()} boxes")
-    keep = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
-    if b == 0 or n == 0:
-        return keep
-    col_blocks = -(-n // _TILE)
-    mask = torch.empty((b, n, col_blocks), dtype=torch.int64,
-                       device=boxes.device)
-    cap = n + 1 if max_keep is None else int(max_keep)
-    with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch(lib.frcnn_nms_keep_mask, "nms_keep_mask_batched",
-                boxes.data_ptr(), valid.data_ptr(), b, n, float(thresh),
-                int(plus_one), int(suppress_eq), min(cap, 2**31 - 1),
-                mask.data_ptr(), keep.data_ptr(), stream)
-    nms_keep_mask_batched.launches += 1
-    return keep
+    n = valid.shape[1]
+    return _launch_keep(nms_keep_mask_batched, boxes, valid, thresh,
+                        plus_one, suppress_eq,
+                        n + 1 if max_keep is None else int(max_keep))
 
 
 def batched_nms_keep_plain(boxes, valid, thresh, *, plus_one=False,
@@ -162,22 +170,8 @@ def batched_nms_keep(boxes, valid, thresh, *, plus_one=False,
     if boxes.device.type == "cpu":
         return batched_nms_keep_plain(boxes, valid, thresh, plus_one=plus_one,
                                       suppress_eq=suppress_eq)
-    from tf_faster_rcnn_torch.utils.build import get_lib
-    lib = get_lib()
-    g, n = valid.shape
-    if n > lib.frcnn_batched_nms_max_boxes():
-        raise ValueError(f"batched_nms_keep: N={n} exceeds the kernel's "
-                         f"{lib.frcnn_batched_nms_max_boxes()} boxes")
-    keep = torch.empty((g, n), dtype=torch.bool, device=boxes.device)
-    if g == 0 or n == 0:
-        return keep
-    with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch(lib.frcnn_batched_nms_keep, "batched_nms_keep",
-                boxes.data_ptr(), valid.data_ptr(), g, n, float(thresh),
-                int(plus_one), int(suppress_eq), keep.data_ptr(), stream)
-    batched_nms_keep.launches += 1
-    return keep
+    return _launch_keep(batched_nms_keep, boxes, valid, thresh, plus_one,
+                        suppress_eq, valid.shape[1] + 1)
 
 
 nms_keep_mask_batched.launches = 0

@@ -39,10 +39,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "frcnn_nms_max_boxes": ([], _I),
-    "frcnn_nms_keep_mask": ([_P, _P, _I, _I, _F, _I, _I, _I, _P, _P, _P], _I),
-    "frcnn_batched_nms_max_boxes": ([], _I),
-    "frcnn_batched_nms_keep": ([_P, _P, _I, _I, _F, _I, _I, _P, _P], _I),
+    "frcnn_nms_max_kept": ([], _I),
+    "frcnn_nms_keep": ([_P, _P, _I, _I, _F, _I, _I, _I, _P, _P, _P], _I),
 }
 
 _lock = threading.Lock()
