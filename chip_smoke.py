@@ -172,21 +172,58 @@ def graph_ms(fn, calls=20, replays=5):
     return cuda_ms(graph.replay, replays) / calls
 
 
-def bound(boxes, valid, keep, max_keep):
+def needed_tests(keep, boxes, valid, thresh, *, plus_one=False,
+                 suppress_eq=False, max_keep=None):
+    """The IoU tests greedy NMS needs on this data, given its answer keep:
+    a kept box is tested against every kept box before it, a suppressed box
+    against the kept boxes before it up to its first suppressor, and no box
+    past E (the index of the max_keep-th keep; every box without a cap) is
+    tested. Counted on the card, in chunks of instances."""
+    import torch
+    from tf_faster_rcnn_torch.ops.boxes import bbox_overlaps
+    g, n = keep.shape
+    dev = keep.device
+    pos = torch.arange(n, device=dev)
+    extent = (k1_extent(keep, max_keep) if max_keep is not None
+              else [n - 1] * g)
+    upto = pos[None, :] <= torch.tensor(extent, device=dev)[:, None]
+    kept = keep.long()
+    tests = int(((torch.cumsum(kept, dim=1) - kept) * (keep & upto)).sum())
+    count = kept.sum(dim=1)
+    width = int(count.max())
+    if width == 0:
+        return tests
+    # the kept boxes of each instance, in order, in the first `width` slots
+    order = torch.sort((~keep).to(torch.uint8), dim=1, stable=True).indices
+    order = order[:, :width]
+    slots = torch.arange(width, device=dev)
+    thresh = torch.tensor(thresh, dtype=torch.float32, device=dev)
+    suppressed = valid & ~keep & upto
+    step = max(1, 2**26 // (n * width))
+    for s in range(0, g, step):
+        e = min(s + step, g)
+        kbox = torch.gather(boxes[s:e], 1,
+                            order[s:e, :, None].expand(-1, -1, 4))
+        iou = bbox_overlaps(kbox, boxes[s:e], plus_one)          # [c, K, N]
+        over = ((iou >= thresh) if suppress_eq else (iou > thresh))
+        over &= (slots[None, :] < count[s:e, None])[:, :, None]
+        over &= order[s:e, :, None] < pos[None, None, :]
+        first = torch.argmax(over.to(torch.uint8), dim=1)           # [c, N]
+        hit = over.any(dim=1)
+        if not bool(hit[suppressed[s:e]].all()):
+            raise AssertionError("a suppressed box has no kept suppressor")
+        tests += int(((first + 1) * suppressed[s:e]).sum())
+    return tests
+
+
+def bound(keep, boxes, valid, thresh, *, plus_one=False, suppress_eq=False,
+          max_keep=None):
     """(bound_ms, bound_by, tests) for one NMS call on these inputs: the
     larger of its bytes (boxes and valid read once, keep written once) over
-    the HBM rate and its IoU tests over the float32 rate. The tests this
-    data needs: each valid box before E (the index of the max_keep-th keep;
-    N without a cap) against each kept box before it."""
-    import torch
-    n = keep.shape[1]
-    kept = keep.long()
-    before = torch.cumsum(kept, dim=1) - kept
-    extent = (k1_extent(keep, max_keep) if max_keep is not None
-              else [n] * keep.shape[0])
-    upto = (torch.arange(n, device=keep.device)[None, :]
-            < torch.tensor(extent, device=keep.device)[:, None])
-    tests = int((before * (valid & upto)).sum())
+    the HBM rate and its needed IoU tests (needed_tests) over the float32
+    rate."""
+    tests = needed_tests(keep, boxes, valid, thresh, plus_one=plus_one,
+                         suppress_eq=suppress_eq, max_keep=max_keep)
     nbytes = boxes.numel() * 4 + valid.numel() + keep.numel()
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = tests * FLOP_PER_TEST / F32_FLOP_S * 1e3
@@ -454,9 +491,7 @@ def phase_times(card, model, detect, inputs, captured):
         t_call = min(t_call, timed(lambda: kernel(*args, **kwargs)))
         t_plain = min(t_plain, timed(lambda: plain(*args, **kwargs),
                                      iters=3, warmup=1))
-        keep = kernel(*args, **kwargs)
-        b_ms, b_by, tests = bound(args[0], args[1], keep,
-                                  kwargs.get("max_keep"))
+        b_ms, b_by, tests = bound(kernel(*args, **kwargs), *args, **kwargs)
         times[name] = (t_kernel, t_plain, b_ms, b_by)
         print(f"time {name} {shape}: kernel {t_kernel:.4f} ms (graph "
               f"replay; {t_call:.4f} ms per call from Python), plain "
@@ -471,8 +506,8 @@ def phase_times(card, model, detect, inputs, captured):
             ("K2 COCO shape", K.batched_nms_keep, coco_shape_inputs(dev),
              0.3, dict(plus_one=True))):
         t = graph_ms(lambda: fn(boxes, valid, thresh, **kw), calls=5)
-        b_ms, b_by, tests = bound(boxes, valid, fn(boxes, valid, thresh, **kw),
-                                  kw.get("max_keep"))
+        b_ms, b_by, tests = bound(fn(boxes, valid, thresh, **kw), boxes,
+                                  valid, thresh, **kw)
         print(f"time {label} {tuple(boxes.shape)} {kw}: kernel {t:.4f} ms "
               f"(graph replay), bound {b_ms:.6f} ms by {b_by} ({tests} IoU "
               f"tests), share {b_ms / t:.4f} [{card}]")

@@ -20,6 +20,7 @@ from tf_faster_rcnn_tpu.ops.pallas_nms import (pallas_batched_nms_keep,
                                                pallas_nms_keep_mask)
 from tf_faster_rcnn_tpu.utils.native import nms_cpu
 from tf_faster_rcnn_torch.ops import nms as tnms
+from tf_faster_rcnn_torch.ops.boxes import bbox_overlaps
 from tf_faster_rcnn_torch.ops import nms_kernels as K
 
 
@@ -214,9 +215,7 @@ def _emulated_threshold(thresh, suppress_eq):
     tt = np.nextafter(t, np.float32(-np.inf)) if suppress_eq else t
     th = dict(t=t, eq=suppress_eq, zero_over=bool(0 >= t if suppress_eq
                                                   else 0 > t),
-              exact=bool(0 <= tt < big), T=tt,
-              margin=np.float32(tt * np.float32(2.0 ** -20)))
-    th["filter"] = th["exact"] and tt >= np.float32(2.0 ** -80)
+              exact=bool(0 <= tt < big))
     if th["exact"]:
         u = np.nextafter(tt, np.float32(np.inf))
         th["m"] = (np.float64(tt) + np.float64(u)) / 2
@@ -226,25 +225,15 @@ def _emulated_threshold(thresh, suppress_eq):
 
 def _emulated_over(inter, uni, th):
     """`fl(inter / uni) over thresh` where inter > 0 and uni > 0, decided as
-    the kernel decides it: without the division, by the float pre-test and
-    then the exact test on m for what it leaves open; or by the division
-    where the threshold admits no such test."""
+    the kernel decides it: without the division, by the exact test on m; or
+    by the division where the threshold admits no such test."""
     if not th["exact"]:
         with np.errstate(divide="ignore", invalid="ignore"):
             iou = inter / np.where(uni > 0, uni, np.float32(1))
         return iou >= th["t"] if th["eq"] else iou > th["t"]
     p = th["m"] * uni.astype(np.float64)
     q = inter.astype(np.float64)
-    over = (q > p) | ((q == p) & th["tie_up"])
-    if th["filter"]:
-        with np.errstate(over="ignore", invalid="ignore"):
-            pf = th["T"] * uni
-            d = inter - pf
-            mg = th["margin"] * uni
-        tested = pf >= np.float32(2.0 ** -100)
-        over = np.where(tested & (d > mg), True,
-                        np.where(tested & (d < -mg), False, over))
-    return over
+    return (q > p) | ((q == p) & th["tie_up"])
 
 
 def _emulated_suppresses(a, aa, b, ab, e, th):
@@ -351,10 +340,10 @@ def test_emulated_kernel_matches_plain_on_edge_cases(case):
 @pytest.mark.parametrize("thresh", [0.7, 0.3, 0.5, 0.01, 1e-30])
 @pytest.mark.parametrize("eq", [False, True])
 def test_emulated_threshold_is_the_division_at_the_boundary(thresh, eq):
-    """The division-free decision (float pre-test, then the test on m)
-    equals fl(inter / uni) compared with the threshold: quotients on, just
-    below and just above each float near the threshold, at unions from
-    1e-38 to 1e6, and random pairs across the same range."""
+    """The division-free decision (the test on m) equals fl(inter / uni)
+    compared with the threshold: quotients on, just below and just above
+    each float near the threshold, at unions from 1e-38 to 1e6, and random
+    pairs across the same range."""
     th = _emulated_threshold(thresh, eq)
     t = np.float32(thresh)
     near = [t]
@@ -381,6 +370,38 @@ def test_emulated_threshold_is_the_division_at_the_boundary(thresh, eq):
     iou = x[live] / uni[live]
     np.testing.assert_array_equal(_emulated_over(x[live], uni[live], th),
                                   iou >= t if eq else iou > t)
+
+
+@pytest.mark.parametrize("n,max_keep,plus_one,suppress_eq", [
+    (200, None, True, False), (300, 20, False, False), (150, 7, True, True)])
+def test_needed_tests_counts_the_greedy_walk(rng, n, max_keep, plus_one,
+                                             suppress_eq):
+    """chip_smoke.needed_tests, the work its bound counts, equals a greedy
+    walk that tests each valid box against the kept boxes in order, stops
+    at the first suppressor, and stops at max_keep survivors."""
+    boxes = torch.from_numpy(np.stack([_sorted_boxes(rng, n)
+                                       for _ in range(3)]))
+    valid = torch.from_numpy(rng.rand(3, n) > 0.1)
+    kw = dict(plus_one=plus_one, suppress_eq=suppress_eq)
+    keep = K.nms_keep_mask_plain(boxes, valid, 0.5, max_keep=max_keep, **kw)
+    thresh = torch.tensor(0.5)
+    want = 0
+    for g in range(3):
+        kept = []
+        for i in range(n):
+            if max_keep is not None and len(kept) == max_keep:
+                break
+            if not valid[g, i]:
+                continue
+            iou = bbox_overlaps(boxes[g, kept], boxes[g, i:i + 1], plus_one)
+            over = (iou >= thresh if suppress_eq else iou > thresh)[:, 0]
+            hits = torch.nonzero(over).flatten().tolist()
+            want += hits[0] + 1 if hits else len(kept)
+            if not hits:
+                kept.append(i)
+        assert torch.nonzero(keep[g]).flatten().tolist() == kept
+    assert chip_smoke.needed_tests(keep, boxes, valid, 0.5,
+                                   max_keep=max_keep, **kw) == want
 
 
 @pytest.mark.cuda

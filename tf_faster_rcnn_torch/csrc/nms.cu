@@ -52,8 +52,8 @@ namespace {
 
 constexpr int kTile = 64;           // boxes per row block (one uint64 word)
 constexpr int kUnroll = 2;          // kept boxes a lane tests per step
-constexpr int kSms = 132;           // SMs of an H100 SXM
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a CTA may use
+constexpr int kMaxDevices = 64;     // devices whose settings are cached
 
 typedef unsigned long long u64;
 
@@ -73,11 +73,6 @@ constexpr int kBytesFixed = 2 * kTile * (sizeof(float4) + sizeof(float))
 //   has at most 25 significant bits and uni 24, so m * uni is exact in
 //   double, and q > m is inter > m * uni: no division, the same bit.
 // * Any other T (a threshold <= 0 with >=, or not finite): the division.
-// * Before the double products, a float pre-test settles all but the
-//   pairs within about 2^-20 of the boundary: with pf = fl(T * uni) normal
-//   and mg = fl(T * 2^-20 * uni), d = fl(inter - pf) > mg implies
-//   inter > T * uni * (1 + 2^-23) >= m * uni, and d < -mg implies
-//   inter < T * uni <= m * uni, counting every rounding error.
 struct Threshold {
   float e;          // 1 for the +1-width IoU, else 0
   float thresh;
@@ -86,9 +81,6 @@ struct Threshold {
   int exact;        // decide by m, tie_up
   double m;
   int tie_up;
-  int filter;       // T >= 2^-80: the float pre-test first
-  float t;          // T
-  float margin;     // T * 2^-20
 };
 
 __device__ __forceinline__ bool suppresses(float4 a, float aa, float4 b,
@@ -100,15 +92,6 @@ __device__ __forceinline__ bool suppresses(float4 a, float aa, float4 b,
   const float uni = aa + ab - inter;
   if (!(uni > 0.0f)) return th.zero_over;
   if (th.exact) {
-    if (th.filter) {
-      const float pf = th.t * uni;
-      if (pf >= 0x1p-100f) {
-        const float d = inter - pf;
-        const float mg = th.margin * uni;
-        if (d > mg) return true;
-        if (d < -mg) return false;
-      }
-    }
     const double p = th.m * static_cast<double>(uni);
     const double in = static_cast<double>(inter);
     return in > p || (in == p && th.tie_up);
@@ -280,9 +263,6 @@ Threshold make_threshold(float thresh, int plus_one, int suppress_eq) {
   th.exact = t >= 0.0f && t < FLT_MAX;
   th.m = 0.0;
   th.tie_up = 0;
-  th.filter = th.exact && t >= 0x1p-80f;
-  th.t = t;
-  th.margin = t * 0x1p-20f;
   if (th.exact) {
     const float u = nextafterf(t, INFINITY);
     unsigned bits;
@@ -294,19 +274,20 @@ Threshold make_threshold(float thresh, int plus_one, int suppress_eq) {
 }
 
 template <int kThreads, bool kSpill>
-cudaError_t launch(const float4* boxes, const unsigned char* valid, int groups,
-                   int n, const Threshold& th, int max_keep, int cap,
-                   float4* spill, unsigned char* keep, cudaStream_t stream) {
+cudaError_t launch(int dev, const float4* boxes, const unsigned char* valid,
+                   int groups, int n, const Threshold& th, int max_keep,
+                   int cap, float4* spill, unsigned char* keep,
+                   cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(kSpill ? 0 : cap) * kBytesPerKept + kBytesFixed;
-  // Set once per size, so that a launch inside CUDA-graph capture makes no
-  // other API call.
-  static size_t smem_allowed = 48 * 1024;
-  if (smem > smem_allowed) {
+  // Raised once per device and size, so that a launch inside CUDA-graph
+  // capture makes no other API call. 0 stands for the default 48 KB.
+  static size_t smem_allowed[kMaxDevices] = {};
+  if (smem > 48 * 1024 && smem > smem_allowed[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         nms_keep_kernel<kThreads, kSpill>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    smem_allowed = smem;
+    smem_allowed[dev] = smem;
   }
   nms_keep_kernel<kThreads, kSpill><<<groups, kThreads, smem, stream>>>(
       boxes, valid, n, th, max_keep, cap, spill, keep);
@@ -314,14 +295,27 @@ cudaError_t launch(const float4* boxes, const unsigned char* valid, int groups,
 }
 
 template <int kThreads>
-cudaError_t launch(const float4* boxes, const unsigned char* valid, int groups,
-                   int n, const Threshold& th, int max_keep, int cap,
-                   float4* spill, unsigned char* keep, cudaStream_t stream) {
+cudaError_t launch(int dev, const float4* boxes, const unsigned char* valid,
+                   int groups, int n, const Threshold& th, int max_keep,
+                   int cap, float4* spill, unsigned char* keep,
+                   cudaStream_t stream) {
   if (spill != nullptr)
-    return launch<kThreads, true>(boxes, valid, groups, n, th, max_keep, cap,
-                                  spill, keep, stream);
-  return launch<kThreads, false>(boxes, valid, groups, n, th, max_keep, cap,
-                                 nullptr, keep, stream);
+    return launch<kThreads, true>(dev, boxes, valid, groups, n, th, max_keep,
+                                  cap, spill, keep, stream);
+  return launch<kThreads, false>(dev, boxes, valid, groups, n, th, max_keep,
+                                 cap, nullptr, keep, stream);
+}
+
+// The SM count of device dev, read once.
+cudaError_t sm_count(int dev, int* sms) {
+  static int cached[kMaxDevices] = {};
+  if (cached[dev] == 0) {
+    const cudaError_t err = cudaDeviceGetAttribute(
+        &cached[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = cached[dev];
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -336,8 +330,9 @@ int frcnn_nms_max_kept() { return (kSmemLimit - kBytesFixed) / kBytesPerKept; }
 // Each instance keeps at most max_keep boxes (>= 1); pass n or more for no
 // cap. spill: NULL, or where min(max_keep, n) > frcnn_nms_max_kept(),
 // 20 * groups * min(max_keep, n) bytes of device scratch, 16-byte aligned.
-// Few instances get CTAs of 1024 threads, many get smaller ones, so that
-// all of them fit on the 132 SMs at once where they can.
+// The stream belongs to the current device. Few instances get CTAs of 1024
+// threads, many get smaller ones, so that all of them fit on the device's
+// SMs at once where they can.
 int frcnn_nms_keep(const void* boxes, const void* valid, int groups, int n,
                    float thresh, int plus_one, int suppress_eq, int max_keep,
                    void* spill, void* keep, void* stream) {
@@ -345,15 +340,22 @@ int frcnn_nms_keep(const void* boxes, const void* valid, int groups, int n,
   const int cap = max_keep < n ? max_keep : n;
   if (max_keep < 1 || ((cap > frcnn_nms_max_kept()) != (spill != nullptr)))
     return cudaErrorInvalidValue;
+  int dev = 0;
+  int sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  err = sm_count(dev, &sms);
+  if (err != cudaSuccess) return err;
   auto* sp = static_cast<float4*>(spill);
   const auto* b = static_cast<const float4*>(boxes);
   const auto* v = static_cast<const unsigned char*>(valid);
   auto* k = static_cast<unsigned char*>(keep);
   const Threshold th = make_threshold(thresh, plus_one, suppress_eq);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (groups <= kSms) return launch<1024>(b, v, groups, n, th, max_keep, cap, sp, k, s);
-  if (groups <= 2 * kSms) return launch<512>(b, v, groups, n, th, max_keep, cap, sp, k, s);
-  return launch<256>(b, v, groups, n, th, max_keep, cap, sp, k, s);
+  if (groups <= sms) return launch<1024>(dev, b, v, groups, n, th, max_keep, cap, sp, k, s);
+  if (groups <= 2 * sms) return launch<512>(dev, b, v, groups, n, th, max_keep, cap, sp, k, s);
+  return launch<256>(dev, b, v, groups, n, th, max_keep, cap, sp, k, s);
 }
 
 }  // extern "C"
