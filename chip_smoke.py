@@ -23,7 +23,22 @@ Phases, in order; any failure raises and the exit code is nonzero:
 5. times, with CUDA events after warm-up: each kernel (device time, from a
    CUDA graph of 20 calls replayed, and per call from Python) against its
    plain version on the main path's own inputs, beside its bound; K1 at the
-   TRAIN shape and K2 at the COCO shape; the detect step and its stages.
+   TRAIN shape and K2 at the COCO shape; the detect step and its stages;
+6. train path: the res101 train step at experiments/cfgs/res101.yml's
+   TRAIN settings (B = 8 on the same canvas, 12000 -> 2000 proposals, 256
+   anchors and 256 RoIs per image, gt = the scenes' rectangles padded to
+   TPU.MAX_GT, float32, SGD with the NaN guard) through create_train_state
+   and make_train_step. Three steps: finite losses, both cross-entropies
+   above 0, no step skipped, K1 launched once per step at N = 12000 with
+   max_keep 2000 (and K2 never), the stem and block1 bitwise unchanged,
+   block2, block4, the RPN and the heads moved. One more step from the same
+   state and noise through the kernel and through the plain K1, with
+   deterministic cuDNN: equal proposals, sampled RoIs, RoI and anchor
+   labels, the total loss to 1e-6 and every parameter to 1e-6 relative;
+   K1 equal to its plain version on the step's own inputs; one step with
+   torch's sync debug mode on makes no host sync. Then the step's
+   time (mean of 10 by CUDA events after warm-up), images/s, peak memory,
+   and K1's graph-replay time, plain time and bound on the step's inputs.
 
 The line before the last is one JSON object describing the kernels; the last
 is {"ok": true, "device": {...}}. TF32 is off in every phase: a float32
@@ -37,6 +52,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -52,6 +68,14 @@ SOURCE = "tf_faster_rcnn_torch/csrc/nms.cu"
 # the tensor cores; and the float32 operations of one IoU test (min, max,
 # sub, add, max for each of iw and ih; inter; uni's add and sub; uni > 0;
 # the division; the threshold compare), the areas computed once per box.
+# the train path: experiments/cfgs/res101.yml's TRAIN keys that differ from
+# the defaults (tests/test_torch_detect.py holds the result to the YAML),
+# the image extent inside the canvas and TPU.MAX_GT
+TRAIN_CFG = ["TRAIN.BATCH_SIZE", "256", "TRAIN.BG_THRESH_LO", "0.0",
+             "TRAIN.DOUBLE_BIAS", "False"]
+IM_HW = (600.0, 1000.0)
+MAX_GT = 100
+TRAIN_STEPS = 3
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
 FLOP_PER_TEST = 16
@@ -74,6 +98,25 @@ def synthetic_scenes(rng, batch, h, w, mean=128.0):
             y2 = y1 + rng.randint(30, min(h - y1, h // 2))
             ims[b, y1:y2, x1:x2] = rng.randint(140, 255, 3)
     return ims - mean
+
+
+def scene_rectangles(rng, batch, h, w):
+    """The rectangles synthetic_scenes paints, per image, as inclusive
+    (x1, y1, x2, y2) pixel boxes: the same draws from a RandomState in the
+    state synthetic_scenes is given."""
+    rng.randint(0, 60, (batch, h, w, 3))
+    rects = []
+    for _ in range(batch):
+        image = []
+        for _ in range(rng.randint(2, 7)):
+            x1 = rng.randint(0, w - 40)
+            y1 = rng.randint(0, h - 40)
+            x2 = x1 + rng.randint(30, min(w - x1, w // 2))
+            y2 = y1 + rng.randint(30, min(h - y1, h // 2))
+            rng.randint(140, 255, 3)
+            image.append((x1, y1, x2 - 1, y2 - 1))
+        rects.append(image)
+    return rects
 
 
 def sorted_boxes(rng, n):
@@ -534,6 +577,241 @@ def phase_times(card, model, detect, inputs, captured):
     return times
 
 
+def train_batch(dev, seed=SEED):
+    """The train path's batch: bench.py's scenes, and as gt the rectangles
+    they paint (clipped to the image extent), with classes from the seed in
+    1..20, padded to MAX_GT with a validity mask."""
+    import torch
+    h, w = CANVAS
+    image = synthetic_scenes(np.random.RandomState(seed), BATCH, h, w)
+    rects = scene_rectangles(np.random.RandomState(seed), BATCH, h, w)
+    classes = np.random.RandomState(seed + 3)
+    gt = np.zeros((BATCH, MAX_GT, 5), np.float32)
+    gt_valid = np.zeros((BATCH, MAX_GT), bool)
+    for b, image_rects in enumerate(rects):
+        for i, (x1, y1, x2, y2) in enumerate(image_rects):
+            gt[b, i] = (x1, y1, min(x2, IM_HW[1] - 1), min(y2, IM_HW[0] - 1),
+                        classes.randint(1, NUM_CLASSES))
+            gt_valid[b, i] = True
+    im_info = [[IM_HW[0], IM_HW[1], 1.6]] * BATCH
+    return {"image": torch.from_numpy(image).to(dev),
+            "im_info": torch.tensor(im_info, device=dev),
+            "gt_boxes": torch.from_numpy(gt).to(dev),
+            "gt_valid": torch.from_numpy(gt_valid).to(dev)}
+
+
+def build_train_path(dev):
+    """The res101 train step at TRAIN_CFG, from the entry points a user
+    calls: spec_from_cfg, FasterRCNN, create_train_state, make_train_step."""
+    import torch
+    from tf_faster_rcnn_torch.config import cfg, cfg_from_list
+    from tf_faster_rcnn_torch.engine.train import (create_train_state,
+                                                   make_train_step)
+    from tf_faster_rcnn_torch.models.init import init_model
+    from tf_faster_rcnn_torch.models.network import FasterRCNN, spec_from_cfg
+    cfg_from_list(TRAIN_CFG)
+    spec = spec_from_cfg("res101", NUM_CLASSES, "TRAIN")
+    model = FasterRCNN(spec)
+    init_model(model, torch.Generator().manual_seed(SEED))
+    state = create_train_state(
+        spec, model, torch.Generator(device=dev).manual_seed(SEED),
+        batch_size=BATCH)
+    step = make_train_step(model, spec,
+                           weight_decay=float(cfg.TRAIN.WEIGHT_DECAY),
+                           bias_decay=bool(cfg.TRAIN.BIAS_DECAY),
+                           lr_fn=state.tx.lr_fn,
+                           nan_guard=bool(cfg.TPU.NAN_GUARD))
+    return spec, state, step, train_batch(dev)
+
+
+@contextlib.contextmanager
+def record_outputs(record):
+    """Record in record[name] the last output of the train path's proposal
+    selection (sorted_nms) and of its two samplers."""
+    from tf_faster_rcnn_torch.models import network
+    names = ("sorted_nms", "anchor_target", "proposal_target")
+    saved = {name: getattr(network, name) for name in names}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            record[name] = fn(*args, **kwargs)
+            return record[name]
+        return call
+
+    for name in names:
+        setattr(network, name, wrap(name, saved[name]))
+    try:
+        yield
+    finally:
+        for name in names:
+            setattr(network, name, saved[name])
+
+
+def _param_groups(model):
+    """The parameters that must stay bitwise frozen, and the groups that
+    must move, by name."""
+    names = [n for n, _ in model.named_parameters()]
+    frozen = [n for n in names if n == "head.conv1.weight"
+              or n.startswith("head.block1.")]
+    moved = {group: [n for n in names if n.startswith(prefix)]
+             for group, prefix in (("block2", "head.block2."),
+                                   ("block4", "tail.block4."),
+                                   ("rpn", "rpn_"), ("cls_score", "cls_score"),
+                                   ("bbox_pred", "bbox_pred"))}
+    return frozen, moved
+
+
+def phase_train_path(card, spec, state, step, batch, errors):
+    """Drive the train step (section 6 of the docstring); returns the K1
+    launches of its run and K1's captured inputs."""
+    import torch
+    from tf_faster_rcnn_torch.models.network import draw_noise
+    from tf_faster_rcnn_torch.ops import nms_kernels as K
+    model = state.model
+    frozen, moved = _param_groups(model)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    record, metrics = {}, []
+    K.reset_launch_counts()
+    per_step = []
+    for _ in range(TRAIN_STEPS):
+        with nms_route(record=record):
+            state, m = step(state, batch)
+        args, kwargs = record["nms_keep_mask_batched"]
+        per_step.append((K.launch_counts()["nms_keep_mask_batched"],
+                         tuple(args[0].shape), kwargs["max_keep"]))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    print(f"train path: {spec.backbone} B={BATCH} {CANVAS[0]}x{CANVAS[1]} "
+          f"{spec.num_classes} classes {spec.rpn_pre_nms_top_n}->"
+          f"{spec.rpn_post_nms_top_n}, {spec.rpn_batchsize} anchors and "
+          f"{spec.roi_batch_size} RoIs per image; launches {launches}; K1 "
+          f"per step (count, shape, max_keep): {per_step}")
+    want = [(i + 1, (BATCH, spec.rpn_pre_nms_top_n, 4),
+             spec.rpn_post_nms_top_n) for i in range(TRAIN_STEPS)]
+    if per_step != want or launches["batched_nms_keep"] != 0:
+        raise AssertionError(f"K1 launches per step {per_step} != {want}, "
+                             f"or K2 launched on the train path")
+    for i, m in enumerate(metrics):
+        row = {k: round(float(v), 6) for k, v in m.items()}
+        print(f"  step {i + 1}: {row}")
+        if not all(np.isfinite(list(row.values()))):
+            raise AssertionError(f"step {i + 1}: a metric is not finite")
+        if row["step_skipped"] != 0.0:
+            raise AssertionError(f"step {i + 1} was skipped by the NaN guard")
+        if not (row["rpn_cross_entropy"] > 0 and row["cross_entropy"] > 0):
+            raise AssertionError(f"step {i + 1}: a cross-entropy is 0")
+    params = dict(model.named_parameters())
+    changed = [n for n in frozen if not torch.equal(params[n], before[n])]
+    still = [n for group in moved.values() for n in group
+             if torch.equal(params[n], before[n])]
+    print(f"  frozen (stem, block1): {len(frozen)} tensors, bitwise "
+          f"unchanged: {not changed}; moved: " + ", ".join(
+              f"{g} {len(ns)}" for g, ns in moved.items())
+          + f", all moved: {not still}")
+    if changed or still or not frozen:
+        raise AssertionError(f"frozen tensors changed {changed[:3]}, or "
+                             f"trainable ones did not move {still[:3]}")
+
+    # one step from the same state and noise, through K1 and the plain K1
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    snapshot = state.state_dict()
+    fh, fw = CANVAS[0] // spec.feat_stride, CANVAS[1] // spec.feat_stride
+    noise = draw_noise(state.generator, BATCH, fh * fw * spec.num_anchors,
+                       spec.rpn_post_nms_top_n, batch["image"].device)
+    results = []
+    for plain in (False, True):
+        state.load_state_dict(snapshot)
+        outs, k1 = {}, {}
+        with nms_route(plain=plain, record=k1), record_outputs(outs):
+            _, m = step(state, batch, noise=noise)
+        torch.cuda.synchronize()
+        results.append((outs, float(m["total_loss"]), {
+            n: p.detach().clone() for n, p in model.named_parameters()}))
+        if not plain:
+            captured = k1["nms_keep_mask_batched"]
+    (ko, kloss, kparams), (po, ploss, pparams) = results
+    checks = {
+        "proposals": all(torch.equal(a, b) for a, b in
+                         zip(ko["sorted_nms"], po["sorted_nms"])),
+        "sampled rois": torch.equal(ko["proposal_target"].rois,
+                                    po["proposal_target"].rois),
+        "roi labels": torch.equal(ko["proposal_target"].labels,
+                                  po["proposal_target"].labels),
+        "roi valid": torch.equal(ko["proposal_target"].valid,
+                                 po["proposal_target"].valid),
+        "anchor labels": torch.equal(ko["anchor_target"].labels,
+                                     po["anchor_target"].labels),
+    }
+    loss_err = abs(kloss - ploss) / abs(ploss)
+    param_err = max(float((kparams[n] - pparams[n]).abs().max())
+                    / max(float(pparams[n].abs().max()), 1e-30)
+                    for n in kparams)
+    print(f"  kernel path vs plain path (deterministic cuDNN): {checks}; "
+          f"total loss {kloss:.7f} vs {ploss:.7f} (rel {loss_err:.2e}, "
+          f"tol 1e-6); parameters max rel {param_err:.2e} (tol 1e-6)")
+    if not all(checks.values()) or loss_err > 1e-6 or param_err > 1e-6:
+        raise AssertionError("kernel and plain train paths differ")
+    torch.backends.cudnn.deterministic = False
+    args, kwargs = captured
+    got = K.nms_keep_mask_batched(*args, **kwargs)
+    check_equal(errors, "nms_keep_mask_batched", got,
+                K.nms_keep_mask_plain(*args, **kwargs),
+                f"train path {tuple(args[0].shape)} {kwargs}")
+    print(f"  K1 E per image on the train path: "
+          f"{k1_extent(got, kwargs['max_keep'])} of N={got.shape[1]}")
+
+    # the step makes no host sync: torch warns at each synchronizing call
+    # it knows of (a prototype: not every one, by its own notice)
+    def syncs(fn):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return [str(w.message) for w in caught
+                if "called a synchronizing" in str(w.message)]
+
+    control = syncs(lambda: float(batch["im_info"][0, 0]))
+    found = syncs(lambda: step(state, batch))
+    print(f"  host syncs in one train step: {len(found)} (the detector "
+          f"found {len(control)} in one .item())")
+    if found or not control:
+        raise AssertionError(f"the train step synchronizes ({found[:1]}), "
+                             "or the detector finds no sync")
+    return launches, captured
+
+
+def phase_train_times(card, state, step, batch, captured):
+    """The train step's time and peak memory, and K1's on its inputs."""
+    import torch
+    from tf_faster_rcnn_torch.ops import nms_kernels as K
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = timed(lambda: step(state, batch))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"time train step: {ms:.3f} ms, {BATCH * 1000.0 / ms:.2f} images/s "
+          f"(res101 f32, TF32 off, B={BATCH}), peak memory "
+          f"{peak / 2**30:.3f} GiB [{card}]")
+    args, kwargs = captured
+    kernel = K.nms_keep_mask_batched
+    t = graph_ms(lambda: kernel(*args, **kwargs))
+    t = min(t, graph_ms(lambda: kernel(*args, **kwargs)))
+    t_plain = timed(lambda: K.nms_keep_mask_plain(*args, **kwargs),
+                    iters=1, warmup=1)
+    keep = kernel(*args, **kwargs)
+    b_ms, b_by, tests = bound(keep, *args, **kwargs)
+    print(f"time K1 on the train path {tuple(args[0].shape)} {kwargs}: "
+          f"kernel {t:.4f} ms (graph replay), plain {t_plain:.4f} ms, bound "
+          f"{b_ms:.6f} ms by {b_by} ({tests} IoU tests), share "
+          f"{b_ms / t:.4f}, E per image {k1_extent(keep, kwargs['max_keep'])}"
+          f" [{card}]")
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "tf_faster_rcnn_torch")):
@@ -549,6 +827,10 @@ def main():
     spec, model, detect, inputs = build_main_path(dev)
     launches, captured = phase_main_path(spec, model, detect, inputs, errors)
     times = phase_times(card, model, detect, inputs, captured)
+    del model, detect, inputs, captured
+    spec, state, step, batch = build_train_path(dev)
+    _, train_k1 = phase_train_path(card, spec, state, step, batch, errors)
+    phase_train_times(card, state, step, batch, train_k1)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,

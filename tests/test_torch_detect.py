@@ -248,3 +248,47 @@ def test_chip_smoke_workload_is_the_bench_workload():
     np.testing.assert_array_equal(
         chip_smoke.synthetic_scenes(np.random.RandomState(0), 2, 96, 160),
         bench.synthetic_scenes(np.random.RandomState(0), 2, 96, 160))
+
+
+def test_chip_smoke_train_workload_is_the_reference_config():
+    """chip_smoke.py's train path: TRAIN_CFG leaves the port's cfg as
+    experiments/cfgs/res101.yml leaves it, and its gt boxes are the
+    rectangles synthetic_scenes paints, inside the image extent."""
+    import os.path as osp
+    import chip_smoke
+    from tf_faster_rcnn_torch import config as tcfg
+    path = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))),
+                    "experiments", "cfgs", "res101.yml")
+    try:
+        tcfg.cfg_from_file(path)
+        want = tnet.spec_from_cfg("res101", 21, "TRAIN")
+        yaml_cfg = {k: dict(v) if isinstance(v, dict) else v
+                    for k, v in tcfg.cfg.items()}
+        tcfg.reset_cfg()
+        tcfg.cfg_from_list(chip_smoke.TRAIN_CFG)
+        assert tnet.spec_from_cfg("res101", 21, "TRAIN") == want
+        # the train loop's logging interval and snapshot name aside
+        skip = ("DISPLAY", "SNAPSHOT_PREFIX")
+        for key in ("TRAIN", "TPU", "RESNET"):
+            got = {k: v for k, v in tcfg.cfg[key].items() if k not in skip}
+            assert got == {k: v for k, v in yaml_cfg[key].items()
+                           if k not in skip}, key
+    finally:
+        tcfg.reset_cfg()
+    assert (want.rpn_pre_nms_top_n, want.rpn_post_nms_top_n,
+            want.roi_batch_size, want.bg_thresh_lo) == (12000, 2000, 256, 0.0)
+    assert chip_smoke.MAX_GT == tcfg.cfg.TPU.MAX_GT
+
+    h, w = 96, 160
+    image = chip_smoke.synthetic_scenes(np.random.RandomState(0), 3, h, w)
+    rects = chip_smoke.scene_rectangles(np.random.RandomState(0), 3, h, w)
+    for b, image_rects in enumerate(rects):
+        assert 2 <= len(image_rects) <= 6
+        painted = np.zeros((h, w), bool)
+        for x1, y1, x2, y2 in image_rects:
+            painted[y1:y2 + 1, x1:x2 + 1] = True
+        # outside the rectangles: the dark background (below 60 - 128)
+        assert (image[b][~painted] < 60 - 128).all()
+        x1, y1, x2, y2 = image_rects[-1]       # painted last: on top
+        patch = image[b, y1:y2 + 1, x1:x2 + 1]
+        assert (patch >= 140 - 128).all() and (patch == patch[0, 0]).all()

@@ -139,18 +139,22 @@ def test_roi_crop_pool_matches(rng, max_pool):
 
 
 def test_port_imports_no_jax_flax_or_cv2():
-    """Importing the port, snapshotting its cfg and running a CPU detect
-    step leaves jax, flax, cv2 and the JAX package out of sys.modules."""
+    """Importing the port, snapshotting its cfg in both modes and running a
+    CPU detect step leaves jax, flax, cv2 and the JAX package out of
+    sys.modules."""
     code = r"""
 import sys
 import torch
 import tf_faster_rcnn_torch
+from tf_faster_rcnn_torch.engine import losses, train
 from tf_faster_rcnn_torch.engine.test_engine import make_detect_fn
+from tf_faster_rcnn_torch.models import targets
 from tf_faster_rcnn_torch.models.init import init_model
 from tf_faster_rcnn_torch.models.network import (FasterRCNN, ModelSpec,
                                                  spec_from_cfg)
 from tf_faster_rcnn_torch.utils import build, weights
 assert spec_from_cfg("res101", 21, "TEST") == ModelSpec("res101", 21)
+assert spec_from_cfg("res101", 21, "TRAIN").mode == "TRAIN"
 spec = ModelSpec("res50", 4, anchor_scales=(2,), anchor_ratios=(1.0,),
                  rpn_pre_nms_top_n=32, rpn_post_nms_top_n=8, max_per_image=5)
 model = FasterRCNN(spec, device="cpu").eval()

@@ -198,17 +198,32 @@ def test_spec_defaults_are_the_cfg_defaults():
 
 
 def test_spec_from_cfg_raises_on_train_and_unported_backbones():
-    with pytest.raises(NotImplementedError):
-        tnet.spec_from_cfg("res101", 21, "TRAIN")
-    with pytest.raises(NotImplementedError):
-        tnet.spec_from_cfg("vgg16", 21, "TEST")
+    """TRAIN builds, with the TRAIN phase's proposal counts; the unported
+    backbones and bf16 parameters still raise, in either mode."""
+    from tf_faster_rcnn_torch.config import cfg, reset_cfg
+    spec = tnet.spec_from_cfg("res101", 21, "TRAIN")
+    assert spec.mode == "TRAIN"
+    assert (spec.rpn_pre_nms_top_n, spec.rpn_post_nms_top_n) == (12000, 2000)
+    assert spec == dataclasses.replace(
+        tnet.ModelSpec("res101", 21), mode="TRAIN", rpn_pre_nms_top_n=12000,
+        rpn_post_nms_top_n=2000)
+    for mode in ("TRAIN", "TEST"):
+        with pytest.raises(NotImplementedError):
+            tnet.spec_from_cfg("vgg16", 21, mode)
+    cfg.TPU.PARAM_DTYPE = "bfloat16"
+    try:
+        with pytest.raises(NotImplementedError):
+            tnet.spec_from_cfg("res101", 21, "TRAIN")
+    finally:
+        reset_cfg()
 
 
 @pytest.mark.parametrize("section,key,value", [
     ("TEST", "MODE", "top"), ("TPU", "SPACE_TO_DEPTH", True),
-    ("TPU", "COMPUTE_DTYPE", "bfloat16")])
+    ("TPU", "COMPUTE_DTYPE", "bfloat16"), ("TPU", "PARAM_DTYPE", "bfloat16")])
 def test_spec_from_cfg_raises_on_unported_cfg(section, key, value):
-    """The 'top' proposals, the s2d stem and bf16 compute are not ported."""
+    """The 'top' proposals, the s2d stem, bf16 compute and bf16 parameters
+    are not ported."""
     from tf_faster_rcnn_torch.config import cfg, reset_cfg
     cfg[section][key] = value
     try:
@@ -283,3 +298,25 @@ def test_model_builds_on_the_card_by_default():
             tnet.FasterRCNN(spec)
     model = tnet.FasterRCNN(spec, device="cpu")
     assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
+@pytest.mark.parametrize("name", ["res101", "res50"])
+def test_train_spec_matches_the_reference_spec(name):
+    """spec_from_cfg(..., "TRAIN") after an experiment YAML snapshots the
+    same TRAIN fields as the JAX package's ModelSpec."""
+    import os.path as osp
+    from tf_faster_rcnn_torch import config as tcfg
+    from tf_faster_rcnn_tpu import config as jcfg
+    path = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))),
+                    "experiments", "cfgs", name + ".yml")
+    try:
+        tcfg.cfg_from_file(path)
+        jcfg.cfg_from_file(path)
+        port = tnet.spec_from_cfg(name, 21, "TRAIN")
+        ref = jnet.spec_from_cfg(name, 21, "TRAIN")
+    finally:
+        tcfg.reset_cfg()
+    fields = [f.name for f in dataclasses.fields(port)
+              if f.name not in ("nms_thresh", "bbox_reg", "max_per_image")]
+    assert {f: getattr(port, f) for f in fields} == {
+        f: getattr(ref, f) for f in fields}

@@ -1,0 +1,258 @@
+"""Training engine: the optimizer, the train state and the train step.
+
+Port of ``tf_faster_rcnn_tpu/engine/train.py``:
+
+* ``lr_schedule``: gamma decay at each stepsize boundary, with an optional
+  linear warmup; ``scale_recipe`` maps the reference's 1-image schedule
+  onto a global batch (the linear-scaling rule);
+* the optimizer is SGD with momentum in TensorFlow's form, as
+  ``optax.trace`` computes it: ``v = g + m * v``, ``p -= lr * v``, with
+  the biases' gradients doubled first under ``DOUBLE_BIAS``. Frozen
+  parameters (``requires_grad`` False) are never touched;
+* the schedule's counter is the optimizer's own, as optax's
+  ``scale_by_schedule`` count: it advances only on updates that are
+  applied, so a step that the NaN guard skips advances ``state.step`` but
+  not the learning rate;
+* ``make_train_step`` returns ``step(state, batch, noise=None) -> (state,
+  metrics)``: forward, losses, weight decay, gradients and the update, with
+  no host sync. The NaN guard keeps parameters and momentum by a select,
+  never by a multiply (NaN * 0 is NaN), and ``step_skipped`` stays a device
+  tensor in the metrics.
+
+The parameters live in the model; the state holds the rest of what the JAX
+``TrainState`` holds: the step, the momentum trace, the schedule's count,
+and a ``torch.Generator`` that draws each step's sampling noise (the JAX
+state's key).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Sequence
+
+import torch
+from torch import nn
+
+from tf_faster_rcnn_torch.engine.losses import (detection_losses,
+                                                weight_decay_loss)
+from tf_faster_rcnn_torch.models.network import ModelSpec, TrainNoise
+
+__all__ = ["Optimizer", "TrainState", "all_finite", "create_train_state",
+           "lr_schedule", "make_train_step", "scale_recipe", "train_loss"]
+
+
+def lr_schedule(base_lr: float, gamma: float, stepsizes: Sequence[int],
+                warmup_steps: int = 0,
+                warmup_factor: float = 1.0) -> Callable:
+    """step (an integer tensor, or an int) -> learning rate (a float32
+    tensor on the step's device): base_lr * gamma ** (boundaries passed),
+    ramped linearly from warmup_factor times that over the first
+    warmup_steps steps. The arithmetic is the JAX package's, in float32."""
+    boundaries = sorted(int(s) for s in stepsizes)
+
+    def lr(step):
+        step = torch.as_tensor(step)
+        n = torch.zeros_like(step)
+        for bound in boundaries:
+            n = n + (step >= bound).to(step.dtype)
+        # constants by fill kernels: a copy to the card would synchronise
+        gamma_t, warmup_t = (torch.full((), float(v), device=step.device)
+                             for v in (gamma, warmup_steps))
+        value = base_lr * torch.pow(gamma_t, n.to(torch.float32))
+        if warmup_steps > 0:
+            frac = torch.clamp(step.to(torch.float32) / warmup_t, max=1.0)
+            value = value * (warmup_factor + (1.0 - warmup_factor) * frac)
+        return value
+
+    return lr
+
+
+def scale_recipe(batch_size: int) -> dict:
+    """Map the reference's 1-image/step schedule onto a global batch by the
+    linear-scaling rule: the learning rate times B, the STEPSIZE boundaries
+    and the warmup in batched steps, and ``iters(n)`` converting reference
+    iteration counts (images) to batched steps. Identity at B = 1 or when
+    TPU.AUTO_SCALE_SCHEDULE is off. Reads the port's cfg."""
+    from tf_faster_rcnn_torch.config import cfg
+    b = max(1, int(batch_size))
+    scale = b if bool(cfg.TPU.AUTO_SCALE_SCHEDULE) else 1
+
+    def iters(n):
+        return max(1, -(-int(n) // scale))
+
+    warmup = 0
+    if scale > 1 and int(cfg.TPU.WARMUP_ITERS) > 0:
+        warmup = iters(cfg.TPU.WARMUP_ITERS)
+    return {
+        "learning_rate": float(cfg.TRAIN.LEARNING_RATE) * scale,
+        "stepsizes": [iters(s) for s in cfg.TRAIN.STEPSIZE],
+        "warmup_steps": warmup,
+        "warmup_factor": float(cfg.TPU.WARMUP_FACTOR) if warmup else 1.0,
+        "iters": iters,
+        "scale": scale,
+    }
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    """SGD with TF-form momentum on a schedule: for each trainable
+    parameter, g doubled if it is a bias under double_bias, then
+    ``v = g + momentum * v`` and ``p = p + (-lr(count)) * v``."""
+    lr_fn: Callable
+    momentum: float
+    double_bias: bool
+
+    @torch.no_grad()
+    def apply(self, params: Dict[str, torch.Tensor],
+              grads: Dict[str, torch.Tensor], trace: Dict[str, torch.Tensor],
+              count: torch.Tensor, finite: Optional[torch.Tensor] = None):
+        """Update params and trace in place and advance count, all on the
+        device. With finite (a 0-d bool tensor), the update is selected:
+        where it is False, every tensor keeps its value and count stays."""
+        neg_lr = -self.lr_fn(count)
+        for name, p in params.items():
+            g = grads[name]
+            if self.double_bias and name.endswith(".bias"):
+                g = g * 2.0
+            v = g + self.momentum * trace[name]
+            new_p = p + neg_lr * v
+            if finite is not None:
+                v = torch.where(finite, v, trace[name])
+                new_p = torch.where(finite, new_p, p)
+            trace[name].copy_(v)
+            p.copy_(new_p)
+        count.add_(1 if finite is None else finite.to(count.dtype))
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a training run carries from step to step, beside the model's
+    parameters: the step, the schedule's count (the optimizer's own,
+    advanced only by applied updates), the momentum trace of each trainable
+    parameter, and the generator of the sampling noise."""
+    model: nn.Module
+    tx: Optimizer
+    generator: torch.Generator
+    step: torch.Tensor
+    count: torch.Tensor
+    trace: Dict[str, torch.Tensor]
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The trainable parameters, by name."""
+        return {name: p for name, p in self.model.named_parameters()
+                if p.requires_grad}
+
+    def state_dict(self) -> dict:
+        """A copy of everything the state and the model hold, but the
+        generator (whose state torch keeps apart: ``get_state``)."""
+        return {
+            "params": {k: v.detach().clone()
+                       for k, v in self.model.state_dict().items()},
+            "trace": {k: v.clone() for k, v in self.trace.items()},
+            "step": int(self.step), "count": int(self.count)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict):
+        """Load params (a full model state_dict), trace (entries for every
+        trainable parameter; others are ignored), step and count, e.g. from
+        ``utils/weights.py::train_state_from_flax``."""
+        self.model.load_state_dict(state["params"], strict=True)
+        for name, t in self.trace.items():
+            t.copy_(state["trace"][name])
+        self.step.fill_(int(state["step"]))
+        self.count.fill_(int(state["count"]))
+
+
+def create_train_state(spec: ModelSpec, model: nn.Module,
+                       generator: torch.Generator,
+                       batch_size: int = 1) -> TrainState:
+    """Build the state from the port's cfg (TRAIN.LEARNING_RATE, MOMENTUM,
+    GAMMA, STEPSIZE, DOUBLE_BIAS and the TPU schedule keys). batch_size is
+    the global images per step; > 1 applies scale_recipe. The momentum
+    trace starts at zero, on the model's device."""
+    from tf_faster_rcnn_torch.config import cfg
+    if cfg.TPU.PARAM_DTYPE != "float32":
+        raise NotImplementedError(
+            f"TPU.PARAM_DTYPE {cfg.TPU.PARAM_DTYPE!r} is not ported yet; see "
+            "ROADMAP.md (Queue A)")
+    if model.spec != spec:
+        raise ValueError("the model was built from another spec")
+    recipe = scale_recipe(batch_size)
+    tx = Optimizer(
+        lr_schedule(recipe["learning_rate"], float(cfg.TRAIN.GAMMA),
+                    recipe["stepsizes"], recipe["warmup_steps"],
+                    recipe["warmup_factor"]),
+        momentum=float(cfg.TRAIN.MOMENTUM),
+        double_bias=bool(cfg.TRAIN.DOUBLE_BIAS))
+    dev = next(model.parameters()).device
+    return TrainState(
+        model=model, tx=tx, generator=generator,
+        step=torch.zeros((), dtype=torch.int64, device=dev),
+        count=torch.zeros((), dtype=torch.int64, device=dev),
+        trace={name: torch.zeros_like(p)
+               for name, p in model.named_parameters() if p.requires_grad})
+
+
+def all_finite(total: torch.Tensor, grads) -> torch.Tensor:
+    """A 0-d bool device tensor: the loss and every gradient are finite."""
+    return torch.stack([torch.isfinite(total)] + [
+        torch.isfinite(g).all() for g in grads]).all()
+
+
+def train_loss(model: nn.Module, batch: Dict[str, torch.Tensor],
+               weight_decay: float, bias_decay: bool = False,
+               noise: Optional[TrainNoise] = None,
+               generator: Optional[torch.Generator] = None):
+    """The TRAIN forward and its loss: (total, metrics), total with its
+    graph, metrics detached (the four losses, regularization_loss and
+    total_loss)."""
+    out = model(batch["image"], batch["im_info"], batch["gt_boxes"],
+                batch["gt_valid"], noise=noise, generator=generator)
+    losses = detection_losses(out)
+    reg = weight_decay_loss(model, weight_decay, bias_decay)
+    total = losses["total_loss"] + reg
+    metrics = {k: v.detach() for k, v in losses.items()}
+    metrics["regularization_loss"] = reg.detach()
+    metrics["total_loss"] = total.detach()
+    return total, metrics
+
+
+def make_train_step(model: nn.Module, spec: ModelSpec, *,
+                    weight_decay: float, bias_decay: bool = False,
+                    lr_fn: Optional[Callable] = None,
+                    nan_guard: bool = False) -> Callable:
+    """Returns ``step(state, batch, noise=None) -> (state, metrics)``.
+
+    batch: dict of tensors on the model's device: 'image' [B, H, W, 3],
+    'im_info' [B, 3], 'gt_boxes' [B, G, 5], 'gt_valid' [B, G]. noise: the
+    step's TrainNoise, or None to draw it from state.generator. The state
+    is updated in place and returned; metrics are 0-d device tensors: the
+    four losses, regularization_loss, total_loss, step_skipped under
+    nan_guard and learning_rate (lr_fn at the step) if lr_fn is given.
+
+    nan_guard: when the loss or any gradient is not finite, the update is
+    skipped whole (the step still advances, the generator still draws) and
+    step_skipped is 1.
+    """
+    if model.spec != spec or spec.mode != "TRAIN":
+        raise ValueError("make_train_step needs a model built from this "
+                         "spec, in TRAIN mode")
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             noise: Optional[TrainNoise] = None):
+        total, metrics = train_loss(model, batch, weight_decay, bias_decay,
+                                    noise, state.generator)
+        params = state.params()
+        grads = dict(zip(params, torch.autograd.grad(total,
+                                                     list(params.values()))))
+        finite = None
+        if nan_guard:
+            finite = all_finite(total, grads.values())
+            metrics["step_skipped"] = 1.0 - finite.to(torch.float32)
+        if lr_fn is not None:
+            metrics["learning_rate"] = lr_fn(state.step)
+        state.tx.apply(params, grads, state.trace, state.count, finite)
+        state.step.add_(1)
+        return state, metrics
+
+    return step

@@ -8,7 +8,11 @@ path joined with dots (``utils/weights.py``).
 * stem: conv2d_same(64, 7, /2) -> zero pad(1) -> 3x3/2 VALID max-pool;
 * head: blocks 1-3 with strides (2, 2, 1), each block's stride on its LAST
   unit, so conv4 ends at stride 16;
-* tail: block4 (stride 1) on the RoI crops, then a spatial mean.
+* tail: block4 (stride 1) on the RoI crops, then a spatial mean;
+* freezing: every BN is frozen (buffers), the stem always and the first
+  ``fixed_blocks`` blocks too. The head detaches at that boundary, as the
+  JAX head stops the gradient there, so no backward pass runs through the
+  frozen prefix; ``trainable_filter`` names what the optimizer updates.
 
 Only the plain 7x7 stem is ported; the space-to-depth stem is a TPU
 workaround.
@@ -23,7 +27,8 @@ from torch import nn
 from tf_faster_rcnn_torch.models.layers import (ConvSame, FrozenBatchNorm,
                                                 mask_valid, shrink_valid)
 
-__all__ = ["Bottleneck", "ResNetV1Head", "ResNetV1Tail", "BLOCK_UNITS"]
+__all__ = ["Bottleneck", "ResNetV1Head", "ResNetV1Tail", "BLOCK_UNITS",
+           "trainable_filter"]
 
 BLOCK_UNITS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 _BASE_DEPTHS = (64, 128, 256, 512)
@@ -95,11 +100,14 @@ class _Block(nn.Module):
 
 
 class ResNetV1Head(nn.Module):
-    """Stem + blocks 1-3 -> stride-16, 1024-channel conv4 features."""
+    """Stem + blocks 1-3 -> stride-16, 1024-channel conv4 features. The
+    gradient stops after the stem and after each of the first fixed_blocks
+    blocks."""
 
-    def __init__(self, num_layers: int = 101):
+    def __init__(self, num_layers: int = 101, fixed_blocks: int = 0):
         super().__init__()
         units = BLOCK_UNITS[num_layers]
+        self.fixed_blocks = fixed_blocks
         self.conv1 = ConvSame(3, 64, 7, 2, bias=False)
         self.conv1_bn = FrozenBatchNorm(64)
         self.block_strides = (2, 2, 1)
@@ -121,10 +129,13 @@ class ResNetV1Head(nn.Module):
         if valid_hw is not None:
             valid_hw = shrink_valid(valid_hw, 2)
             x = mask_valid(x, valid_hw)
+        x = x.detach()                      # the stem is always frozen
         for b, s in enumerate(self.block_strides):
             x = getattr(self, f"block{b + 1}")(x, valid_hw)
             if valid_hw is not None:
                 valid_hw = shrink_valid(valid_hw, s)
+            if b + 1 <= self.fixed_blocks:
+                x = x.detach()
         if valid_hw is not None:
             x = mask_valid(x, valid_hw)
         return x
@@ -141,3 +152,14 @@ class ResNetV1Tail(nn.Module):
 
     def forward(self, pooled):
         return self.block4(pooled).mean(dim=(2, 3))
+
+
+def trainable_filter(name: str, fixed_blocks: int) -> bool:
+    """Whether the optimizer updates a parameter of the head or the tail,
+    named relative to it ("conv1.weight", "block2.unit_1.conv1.conv.weight"):
+    not the stem, not blocks 1..fixed_blocks (the reference's freeze rules,
+    resnet_v1.py:88-113). FrozenBN holds buffers, not parameters."""
+    top = name.split(".")[0]
+    if top == "conv1":
+        return False
+    return not (top.startswith("block") and int(top[5:]) <= fixed_blocks)

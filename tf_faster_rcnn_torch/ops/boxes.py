@@ -9,13 +9,35 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["bbox_transform_inv", "clip_boxes", "bbox_overlaps",
-           "BBOX_XFORM_CLIP"]
+__all__ = ["bbox_transform", "bbox_transform_inv", "clip_boxes",
+           "bbox_overlaps", "BBOX_XFORM_CLIP"]
 
 # Max dw/dh before exp(): log(1000/16). The JAX package evaluates it as a
 # float32 log, so it is computed in float32 here too: the two clamps must
 # agree bit for bit.
 BBOX_XFORM_CLIP = float(np.log(np.float32(1000.0 / 16.0)))
+
+
+def bbox_transform(ex_rois, gt_rois):
+    """Encode gt boxes relative to example rois -> (dx, dy, dw, dh) targets.
+
+    ex_rois, gt_rois: [..., 4] as (x1, y1, x2, y2).
+    """
+    ex_w = ex_rois[..., 2] - ex_rois[..., 0] + 1.0
+    ex_h = ex_rois[..., 3] - ex_rois[..., 1] + 1.0
+    ex_cx = ex_rois[..., 0] + 0.5 * ex_w
+    ex_cy = ex_rois[..., 1] + 0.5 * ex_h
+
+    gt_w = gt_rois[..., 2] - gt_rois[..., 0] + 1.0
+    gt_h = gt_rois[..., 3] - gt_rois[..., 1] + 1.0
+    gt_cx = gt_rois[..., 0] + 0.5 * gt_w
+    gt_cy = gt_rois[..., 1] + 0.5 * gt_h
+
+    dx = (gt_cx - ex_cx) / ex_w
+    dy = (gt_cy - ex_cy) / ex_h
+    dw = torch.log(gt_w / ex_w)
+    dh = torch.log(gt_h / ex_h)
+    return torch.stack([dx, dy, dw, dh], dim=-1)
 
 
 def bbox_transform_inv(boxes, deltas, xform_clip=None):

@@ -10,8 +10,9 @@ with dots: ``head/block1/unit_1/conv1/conv/kernel`` becomes
 
 The input is a nested dict of arrays (numpy, or anything ``np.asarray``
 takes): the output of ``FasterRCNN.init`` or ``utils/checkpoint.py::
-load_params``, with or without the top-level ``params`` key. Nothing here
-imports JAX.
+load_params``, with or without the top-level ``params`` key.
+``train_state_from_flax`` bridges a whole JAX ``TrainState`` the same way.
+Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_flax"]
+__all__ = ["state_dict_from_flax", "train_state_from_flax"]
 
 
 def _flatten(tree, prefix=()):
@@ -47,6 +48,38 @@ def state_dict_from_flax(params) -> dict:
                 x = x.T                            # [in, out] -> [out, in]
             else:
                 raise ValueError(f"kernel {'/'.join(path)} of rank {x.ndim}")
-        out[".".join(path[:-1] + (name,))] = torch.from_numpy(
-            np.ascontiguousarray(x))
+        out[".".join(path[:-1] + (name,))] = torch.from_numpy(np.array(x))
     return out
+
+
+def _optax_states(tree):
+    """Every optax state NamedTuple in a (nested) chain state."""
+    if hasattr(tree, "_fields"):
+        yield tree
+    if isinstance(tree, (tuple, list)):
+        for sub in tree:
+            yield from _optax_states(sub)
+
+
+def train_state_from_flax(state) -> dict:
+    """The JAX package's TrainState (anything with ``step``, ``params`` and
+    ``opt_state``) as the dict ``engine/train.py::TrainState.
+    load_state_dict`` takes: ``params`` (the model's state_dict), ``trace``
+    (the momentum trace of optax.trace, in the same layout, by the same
+    names), ``step`` and ``count`` (scale_by_schedule's count, which the NaN
+    guard holds back on a skipped step)."""
+    found = {}
+    for sub in _optax_states(state.opt_state):
+        for field in ("trace", "count"):
+            if field in sub._fields:
+                if field in found:
+                    raise ValueError(f"opt_state holds two '{field}' states")
+                found[field] = getattr(sub, field)
+    missing = {"trace", "count"} - set(found)
+    if missing:
+        raise ValueError(f"opt_state has no {sorted(missing)} state: not "
+                         "the JAX package's make_optimizer chain")
+    return {"params": state_dict_from_flax(state.params),
+            "trace": state_dict_from_flax(found["trace"]),
+            "step": int(np.asarray(state.step)),
+            "count": int(np.asarray(found["count"]))}
