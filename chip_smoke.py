@@ -34,11 +34,33 @@ Phases, in order; any failure raises and the exit code is nonzero:
    block2, block4, the RPN and the heads moved. One more step from the same
    state and noise through the kernel and through the plain K1, with
    deterministic cuDNN: equal proposals, sampled RoIs, RoI and anchor
-   labels, the total loss to 1e-6 and every parameter to 1e-6 relative;
+   labels, the total loss to 1e-6 and every parameter to 1e-6 relative
+   (1e-3 in bf16, where the crop's backward adds atomically in bf16);
    K1 equal to its plain version on the step's own inputs; one step with
    torch's sync debug mode on makes no host sync. Then the step's
    time (mean of 10 by CUDA events after warm-up), images/s, peak memory,
-   and K1's graph-replay time, plain time and bound on the step's inputs.
+   and K1's graph-replay time, plain time and bound on the step's inputs;
+7. bf16 detect: phase 4's step at TPU.COMPUTE_DTYPE bfloat16 (the bench's
+   configuration, bench.py and tools/bench_train.py) on the same weights:
+   both kernels launched, each equal to its plain version on this path's
+   inputs, finite [8, 100, 6] detections; step time, images/s and peak
+   memory; the drift from phase 4's float32 detections (the share matched
+   by a bf16 detection of the same class at IoU >= 0.9), printed, not gated;
+8. bf16 train: phase 6 at COMPUTE_DTYPE bfloat16 and PARAM_DTYPE float32,
+   with all of phase 6's checks and times;
+9. vgg16 and mobile (DEPTH_MULTIPLIER 1.0) at full width, float32 as their
+   YAMLs leave it, on phase 4's canvas: one detect step (both kernels
+   launched, each equal to its plain version on its inputs, finite
+   detections) and two train steps at their YAMLs' TRAIN settings (K1 once
+   a step, finite losses, the frozen prefix bitwise unchanged: vgg16
+   conv1-conv2, mobile layers 0-4); their step times;
+10. TEST.MODE 'top': one res101 detect step (B = 2, TEST.RPN_TOP_N 5000 of
+   the 21888 anchors): K1 not launched, K2 launched and equal to its plain
+   version, the proposals sorted by descending score.
+
+Each phase from 7 on prints its wall time. The kernel line gives, beside
+each kernel's main-path fields (phase 4), its launches, graph-replay time,
+plain time and bound on each other path's own inputs ("paths").
 
 The line before the last is one JSON object describing the kernels; the last
 is {"ok": true, "device": {...}}. TF32 is off in every phase: a float32
@@ -53,6 +75,7 @@ import subprocess
 import sys
 import time
 import warnings
+from dataclasses import replace
 
 import numpy as np
 
@@ -73,6 +96,15 @@ SOURCE = "tf_faster_rcnn_torch/csrc/nms.cu"
 # the image extent inside the canvas and TPU.MAX_GT
 TRAIN_CFG = ["TRAIN.BATCH_SIZE", "256", "TRAIN.BG_THRESH_LO", "0.0",
              "TRAIN.DOUBLE_BIAS", "False"]
+# the same for experiments/cfgs/vgg16.yml and mobile.yml (held to the YAMLs
+# by tests/test_torch_backbones.py), and the bench's compute dtype
+BACKBONE_TRAIN_CFG = {
+    "res101": TRAIN_CFG,
+    "vgg16": ["TRAIN.BATCH_SIZE", "256", "TRAIN.BG_THRESH_LO", "0.0"],
+    "mobile": TRAIN_CFG}
+BF16 = ["TPU.COMPUTE_DTYPE", "bfloat16"]
+BACKBONE_TRAIN_STEPS = 2
+TOP_BATCH = 2
 IM_HW = (600.0, 1000.0)
 MAX_GT = 100
 TRAIN_STEPS = 3
@@ -431,13 +463,19 @@ def nms_route(plain=False, record=None):
         nms_mod.nms_keep_mask_batched, detect_mod.batched_nms_keep = saved
 
 
+def build_spec():
+    """The main path's spec: res101 TEST at the cfg defaults."""
+    from tf_faster_rcnn_torch.models.network import ModelSpec
+    return ModelSpec("res101", NUM_CLASSES, rpn_pre_nms_top_n=6000,
+                     rpn_post_nms_top_n=300)
+
+
 def build_main_path(dev):
     import torch
     from tf_faster_rcnn_torch.engine.test_engine import make_detect_fn
     from tf_faster_rcnn_torch.models.init import init_model
-    from tf_faster_rcnn_torch.models.network import FasterRCNN, ModelSpec
-    spec = ModelSpec("res101", NUM_CLASSES, rpn_pre_nms_top_n=6000,
-                     rpn_post_nms_top_n=300)
+    from tf_faster_rcnn_torch.models.network import FasterRCNN
+    spec = build_spec()
     model = FasterRCNN(spec).eval()       # built on the card by default
     init_model(model, torch.Generator().manual_seed(SEED))
     rng = np.random.RandomState(SEED)
@@ -505,7 +543,7 @@ def phase_main_path(spec, model, detect, inputs, errors):
         if name == "nms_keep_mask_batched":
             print(f"  K1 E per image: {k1_extent(got, kwargs['max_keep'])} "
                   f"of N={got.shape[1]}")
-    return launches, captured
+    return launches, captured, (det, dv)
 
 
 def k1_extent(keep, max_keep):
@@ -517,6 +555,26 @@ def k1_extent(keep, max_keep):
     reached = count[:, -1] >= max_keep
     first = torch.argmax((count >= max_keep).int(), dim=1)
     return torch.where(reached, first, torch.full_like(first, n)).tolist()
+
+
+def kernel_row(card, label, name, args, kwargs, launches):
+    """One kernel on one path's captured inputs: graph-replay time (the
+    better of two), one plain call after one warm-up, and the bound; printed
+    and returned as the kernel line's "paths" entry."""
+    kernel, plain = kernel_pairs()[name]
+    t = min(graph_ms(lambda: kernel(*args, **kwargs)) for _ in range(2))
+    t_plain = timed(lambda: plain(*args, **kwargs), iters=1, warmup=1)
+    keep = kernel(*args, **kwargs)
+    b_ms, b_by, tests = bound(keep, *args, **kwargs)
+    extent = ""
+    if kwargs.get("max_keep") is not None:
+        extent = f", E per image {k1_extent(keep, kwargs['max_keep'])}"
+    print(f"time {name} on the {label} path {tuple(args[0].shape)} {kwargs}: "
+          f"kernel {t:.4f} ms (graph replay), plain {t_plain:.4f} ms, bound "
+          f"{b_ms:.6f} ms by {b_by} ({tests} IoU tests), share "
+          f"{b_ms / t:.4f}, launches {launches}{extent} [{card}]")
+    return {"launches": launches, "ms": t, "plain_ms": t_plain,
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def phase_times(card, model, detect, inputs, captured):
@@ -600,27 +658,31 @@ def train_batch(dev, seed=SEED):
             "gt_valid": torch.from_numpy(gt_valid).to(dev)}
 
 
-def build_train_path(dev):
-    """The res101 train step at TRAIN_CFG, from the entry points a user
-    calls: spec_from_cfg, FasterRCNN, create_train_state, make_train_step."""
+def build_train_path(dev, backbone="res101", extra_cfg=()):
+    """The backbone's train step at its YAML's TRAIN settings and
+    extra_cfg, from the entry points a user calls: spec_from_cfg,
+    FasterRCNN, create_train_state, make_train_step."""
     import torch
-    from tf_faster_rcnn_torch.config import cfg, cfg_from_list
+    from tf_faster_rcnn_torch.config import cfg, cfg_from_list, reset_cfg
     from tf_faster_rcnn_torch.engine.train import (create_train_state,
                                                    make_train_step)
     from tf_faster_rcnn_torch.models.init import init_model
     from tf_faster_rcnn_torch.models.network import FasterRCNN, spec_from_cfg
-    cfg_from_list(TRAIN_CFG)
-    spec = spec_from_cfg("res101", NUM_CLASSES, "TRAIN")
+    reset_cfg()
+    cfg_from_list(BACKBONE_TRAIN_CFG[backbone] + list(extra_cfg))
+    spec = spec_from_cfg(backbone, NUM_CLASSES, "TRAIN")
     model = FasterRCNN(spec)
     init_model(model, torch.Generator().manual_seed(SEED))
     state = create_train_state(
         spec, model, torch.Generator(device=dev).manual_seed(SEED),
         batch_size=BATCH)
-    step = make_train_step(model, spec,
-                           weight_decay=float(cfg.TRAIN.WEIGHT_DECAY),
-                           bias_decay=bool(cfg.TRAIN.BIAS_DECAY),
-                           lr_fn=state.tx.lr_fn,
-                           nan_guard=bool(cfg.TPU.NAN_GUARD))
+    step = make_train_step(
+        model, spec, weight_decay=float(cfg.TRAIN.WEIGHT_DECAY),
+        bias_decay=bool(cfg.TRAIN.BIAS_DECAY),
+        mobile_weight_decay=float(cfg.MOBILENET.WEIGHT_DECAY),
+        regu_depth=bool(cfg.MOBILENET.REGU_DEPTH), lr_fn=state.tx.lr_fn,
+        nan_guard=bool(cfg.TPU.NAN_GUARD))
+    reset_cfg()
     return spec, state, step, train_batch(dev)
 
 
@@ -648,22 +710,25 @@ def record_outputs(record):
 
 
 def _param_groups(model):
-    """The parameters that must stay bitwise frozen, and the groups that
-    must move, by name."""
-    names = [n for n, _ in model.named_parameters()]
-    frozen = [n for n in names if n == "head.conv1.weight"
-              or n.startswith("head.block1.")]
-    moved = {group: [n for n in names if n.startswith(prefix)]
-             for group, prefix in (("block2", "head.block2."),
-                                   ("block4", "tail.block4."),
+    """The parameters that must stay bitwise frozen (the backbone's frozen
+    prefix: res101's stem and block1, vgg16's conv1-conv2, mobile's first
+    FIXED_LAYERS layers), and the groups that must move, by name."""
+    named = list(model.named_parameters())
+    frozen = [n for n, p in named if not p.requires_grad]
+    moved = {group: [n for n, p in named if n.startswith(prefix)
+                     and p.requires_grad]
+             for group, prefix in (("head", "head."), ("tail", "tail."),
                                    ("rpn", "rpn_"), ("cls_score", "cls_score"),
                                    ("bbox_pred", "bbox_pred"))}
     return frozen, moved
 
 
-def phase_train_path(card, spec, state, step, batch, errors):
-    """Drive the train step (section 6 of the docstring); returns the K1
-    launches of its run and K1's captured inputs."""
+def phase_train_path(card, spec, state, step, batch, errors,
+                     steps=TRAIN_STEPS, compare=True):
+    """Drive the train step (section 6 of the docstring; without compare,
+    the steps and their checks only, and K1 against its plain version on
+    the last step's inputs); returns the K1 launches of its run and K1's
+    captured inputs."""
     import torch
     from tf_faster_rcnn_torch.models.network import draw_noise
     from tf_faster_rcnn_torch.ops import nms_kernels as K
@@ -673,7 +738,7 @@ def phase_train_path(card, spec, state, step, batch, errors):
     record, metrics = {}, []
     K.reset_launch_counts()
     per_step = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         with nms_route(record=record):
             state, m = step(state, batch)
         args, kwargs = record["nms_keep_mask_batched"]
@@ -682,13 +747,16 @@ def phase_train_path(card, spec, state, step, batch, errors):
         metrics.append(m)
     torch.cuda.synchronize()
     launches = K.launch_counts()
-    print(f"train path: {spec.backbone} B={BATCH} {CANVAS[0]}x{CANVAS[1]} "
+    print(f"train path: {spec.backbone} {spec.compute_dtype} B={BATCH} "
+          f"{CANVAS[0]}x{CANVAS[1]} "
           f"{spec.num_classes} classes {spec.rpn_pre_nms_top_n}->"
           f"{spec.rpn_post_nms_top_n}, {spec.rpn_batchsize} anchors and "
           f"{spec.roi_batch_size} RoIs per image; launches {launches}; K1 "
           f"per step (count, shape, max_keep): {per_step}")
-    want = [(i + 1, (BATCH, spec.rpn_pre_nms_top_n, 4),
-             spec.rpn_post_nms_top_n) for i in range(TRAIN_STEPS)]
+    n_anchors = (CANVAS[0] // spec.feat_stride) * (
+        CANVAS[1] // spec.feat_stride) * spec.num_anchors
+    want = [(i + 1, (BATCH, min(spec.rpn_pre_nms_top_n, n_anchors), 4),
+             spec.rpn_post_nms_top_n) for i in range(steps)]
     if per_step != want or launches["batched_nms_keep"] != 0:
         raise AssertionError(f"K1 launches per step {per_step} != {want}, "
                              f"or K2 launched on the train path")
@@ -705,13 +773,20 @@ def phase_train_path(card, spec, state, step, batch, errors):
     changed = [n for n in frozen if not torch.equal(params[n], before[n])]
     still = [n for group in moved.values() for n in group
              if torch.equal(params[n], before[n])]
-    print(f"  frozen (stem, block1): {len(frozen)} tensors, bitwise "
+    print(f"  frozen prefix: {len(frozen)} tensors, bitwise "
           f"unchanged: {not changed}; moved: " + ", ".join(
               f"{g} {len(ns)}" for g, ns in moved.items())
           + f", all moved: {not still}")
     if changed or still or not frozen:
         raise AssertionError(f"frozen tensors changed {changed[:3]}, or "
                              f"trainable ones did not move {still[:3]}")
+    if not compare:
+        args, kwargs = record["nms_keep_mask_batched"]
+        check_equal(errors, "nms_keep_mask_batched",
+                    K.nms_keep_mask_batched(*args, **kwargs),
+                    K.nms_keep_mask_plain(*args, **kwargs),
+                    f"train path {tuple(args[0].shape)} {kwargs}")
+        return launches, (args, kwargs)
 
     # one step from the same state and noise, through K1 and the plain K1
     torch.backends.cudnn.deterministic = True
@@ -745,13 +820,17 @@ def phase_train_path(card, spec, state, step, batch, errors):
                                      po["anchor_target"].labels),
     }
     loss_err = abs(kloss - ploss) / abs(ploss)
+    # bf16: the crop's backward scatters with atomic adds in bf16, each
+    # rounding at 2^-8 in an order that varies from run to run
+    param_tol = 1e-6 if spec.compute_dtype == "float32" else 1e-3
     param_err = max(float((kparams[n] - pparams[n]).abs().max())
                     / max(float(pparams[n].abs().max()), 1e-30)
                     for n in kparams)
     print(f"  kernel path vs plain path (deterministic cuDNN): {checks}; "
           f"total loss {kloss:.7f} vs {ploss:.7f} (rel {loss_err:.2e}, "
-          f"tol 1e-6); parameters max rel {param_err:.2e} (tol 1e-6)")
-    if not all(checks.values()) or loss_err > 1e-6 or param_err > 1e-6:
+          f"tol 1e-6); parameters max rel {param_err:.2e} (tol "
+          f"{param_tol:g})")
+    if not all(checks.values()) or loss_err > 1e-6 or param_err > param_tol:
         raise AssertionError("kernel and plain train paths differ")
     torch.backends.cudnn.deterministic = False
     args, kwargs = captured
@@ -786,30 +865,135 @@ def phase_train_path(card, spec, state, step, batch, errors):
     return launches, captured
 
 
-def phase_train_times(card, state, step, batch, captured):
-    """The train step's time and peak memory, and K1's on its inputs."""
+def phase_train_times(card, state, step, batch, captured, label="train",
+                      iters=ITERS, launches=1):
+    """The train step's time and peak memory, and K1's on its inputs;
+    returns K1's row for the kernel line."""
     import torch
-    from tf_faster_rcnn_torch.ops import nms_kernels as K
+    spec = state.model.spec
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ms = timed(lambda: step(state, batch))
+    ms = timed(lambda: step(state, batch), iters=iters)
     peak = torch.cuda.max_memory_allocated()
-    print(f"time train step: {ms:.3f} ms, {BATCH * 1000.0 / ms:.2f} images/s "
-          f"(res101 f32, TF32 off, B={BATCH}), peak memory "
+    print(f"time {label} step: {ms:.3f} ms, {BATCH * 1000.0 / ms:.2f} "
+          f"images/s ({spec.backbone} {spec.compute_dtype}, TF32 off, "
+          f"B={BATCH}, mean of {iters}), peak memory "
           f"{peak / 2**30:.3f} GiB [{card}]")
     args, kwargs = captured
-    kernel = K.nms_keep_mask_batched
-    t = graph_ms(lambda: kernel(*args, **kwargs))
-    t = min(t, graph_ms(lambda: kernel(*args, **kwargs)))
-    t_plain = timed(lambda: K.nms_keep_mask_plain(*args, **kwargs),
-                    iters=1, warmup=1)
-    keep = kernel(*args, **kwargs)
-    b_ms, b_by, tests = bound(keep, *args, **kwargs)
-    print(f"time K1 on the train path {tuple(args[0].shape)} {kwargs}: "
-          f"kernel {t:.4f} ms (graph replay), plain {t_plain:.4f} ms, bound "
-          f"{b_ms:.6f} ms by {b_by} ({tests} IoU tests), share "
-          f"{b_ms / t:.4f}, E per image {k1_extent(keep, kwargs['max_keep'])}"
-          f" [{card}]")
+    return kernel_row(card, label, "nms_keep_mask_batched", args, kwargs,
+                      launches)
+
+
+def build_detect_path(dev, spec, batch=BATCH):
+    """A detect step of spec through make_detect_fn, with phase 4's seeded
+    weights and scenes (the first `batch` of them)."""
+    import torch
+    from tf_faster_rcnn_torch.engine.test_engine import make_detect_fn
+    from tf_faster_rcnn_torch.models.init import init_model
+    from tf_faster_rcnn_torch.models.network import FasterRCNN
+    model = FasterRCNN(spec).eval()
+    init_model(model, torch.Generator().manual_seed(SEED))
+    h, w = CANVAS
+    image = synthetic_scenes(np.random.RandomState(SEED), BATCH, h, w)
+    image = torch.from_numpy(image[:batch]).to(dev)
+    im_info = torch.tensor([[600.0, 1000.0, 1.6]] * batch, device=dev)
+    orig_hw = torch.tensor([[375.0, 625.0]] * batch, device=dev)
+    return model, make_detect_fn(model, spec), (image, im_info, orig_hw)
+
+
+def matched_share(det, dv, ref, ref_valid, iou=0.9):
+    """(matched, total): the valid detections of ref matched by a valid
+    detection in det of the same class and image at IoU >= iou."""
+    from tf_faster_rcnn_torch.ops.boxes import bbox_overlaps
+    over = bbox_overlaps(ref[..., 2:], det[..., 2:], False)    # [B, D, D]
+    same = ref[..., 0][:, :, None] == det[..., 0][:, None, :]
+    hit = ((over >= iou) & same & dv[:, None, :]).any(dim=2) & ref_valid
+    return int(hit.sum()), int(ref_valid.sum())
+
+
+def phase_detect_path(card, dev, label, spec, errors, batch=BATCH,
+                      reference=None):
+    """One detect step of spec (sections 7, 9 and 10): launch counts from
+    zero, the checks, each launched kernel against its plain version on
+    this path's inputs, the step's time and peak memory, the kernels' rows;
+    with reference (phase 4's float32 detections), the drift from them."""
+    import torch
+    from tf_faster_rcnn_torch.ops import nms_kernels as K
+    t0 = time.perf_counter()
+    model, detect, inputs = build_detect_path(dev, spec, batch)
+    record = {}
+    K.reset_launch_counts()
+    with nms_route(record=record):
+        det, dv = detect(*inputs)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    top = spec.test_mode == "top"
+    print(f"{label} path: {spec.backbone} {spec.compute_dtype} B={batch} "
+          f"{CANVAS[0]}x{CANVAS[1]} {spec.num_classes} classes, proposals "
+          + (f"top {spec.rpn_top_n}" if top else
+             f"{spec.rpn_pre_nms_top_n}->{spec.rpn_post_nms_top_n}")
+          + f"; launches {launches}")
+    want_k1 = 0 if top else 1
+    if launches != {"nms_keep_mask_batched": want_k1, "batched_nms_keep": 1}:
+        raise AssertionError(f"{label}: launches {launches}, want K1 "
+                             f"{want_k1} and K2 1")
+    if tuple(det.shape) != (batch, spec.max_per_image, 6) \
+            or not bool(torch.isfinite(det).all()):
+        raise AssertionError(f"{label}: detections {tuple(det.shape)} or "
+                             "not finite")
+    per_image = dv.sum(dim=1).tolist()
+    print(f"  valid detections per image: {per_image}")
+    if min(per_image) < 1:
+        raise AssertionError(f"{label}: an image has no valid detection")
+    if top:
+        with torch.inference_mode():
+            out = model(inputs[0], inputs[1])
+        scores, valid = out["roi_scores"], out["roi_valid"]
+        ordered = bool((scores.diff(dim=1) <= 0).all())
+        print(f"  'top' proposals: {tuple(out['rois'].shape)}, all valid "
+              f"{bool(valid.all())}, sorted descending {ordered}")
+        if not (ordered and bool(valid.all())):
+            raise AssertionError(f"{label}: proposals not sorted or invalid")
+    if reference is not None:
+        hit, total = matched_share(det, dv, *reference)
+        print(f"  drift from float32: {hit} of {total} float32 detections "
+              f"({hit / max(total, 1):.4f}) matched by a {spec.compute_dtype} "
+              f"one of the same class at IoU >= 0.9 (printed, not gated)")
+    for name, (args, kwargs) in record.items():
+        kernel, plain = kernel_pairs()[name]
+        check_equal(errors, name, kernel(*args, **kwargs),
+                    plain(*args, **kwargs),
+                    f"{label} path {tuple(args[0].shape)} {kwargs}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = timed(lambda: detect(*inputs))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"time {label} step: {ms:.3f} ms, {batch * 1000.0 / ms:.2f} "
+          f"images/s ({spec.backbone} {spec.compute_dtype}, TF32 off, "
+          f"B={batch}, mean of {ITERS}), peak memory {peak / 2**30:.3f} GiB "
+          f"[{card}]")
+    rows = {name: kernel_row(card, label, name, args, kwargs, launches[name])
+            for name, (args, kwargs) in record.items()}
+    print(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def phase_train_variant(card, dev, label, errors, backbone="res101",
+                        extra_cfg=(), steps=BACKBONE_TRAIN_STEPS,
+                        compare=False, iters=3):
+    """A train path other than phase 6's (sections 8 and 9); returns K1's
+    row."""
+    import torch
+    t0 = time.perf_counter()
+    spec, state, step, batch = build_train_path(dev, backbone, extra_cfg)
+    launches, k1 = phase_train_path(card, spec, state, step, batch, errors,
+                                    steps=steps, compare=compare)
+    row = phase_train_times(card, state, step, batch, k1, label, iters,
+                            launches["nms_keep_mask_batched"] // steps)
+    del state, step, batch
+    torch.cuda.empty_cache()
+    print(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+    return row
 
 
 def main():
@@ -825,19 +1009,43 @@ def main():
     phase_build()
     errors = phase_kernels(dev)
     spec, model, detect, inputs = build_main_path(dev)
-    launches, captured = phase_main_path(spec, model, detect, inputs, errors)
+    launches, captured, f32_det = phase_main_path(spec, model, detect, inputs,
+                                                  errors)
     times = phase_times(card, model, detect, inputs, captured)
     del model, detect, inputs, captured
     spec, state, step, batch = build_train_path(dev)
     _, train_k1 = phase_train_path(card, spec, state, step, batch, errors)
-    phase_train_times(card, state, step, batch, train_k1)
+    paths = {"train f32": {"nms_keep_mask_batched": phase_train_times(
+        card, state, step, batch, train_k1)}}
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+    spec_main = build_spec()
+    paths["detect bf16"] = phase_detect_path(
+        card, dev, "detect bf16", replace(spec_main, compute_dtype="bfloat16"),
+        errors, reference=f32_det)
+    paths["train bf16"] = {"nms_keep_mask_batched": phase_train_variant(
+        card, dev, "train bf16", errors, extra_cfg=BF16, steps=TRAIN_STEPS,
+        compare=True, iters=ITERS)}
+    for backbone in ("vgg16", "mobile"):
+        spec = replace(spec_main, backbone=backbone)
+        paths[f"detect {backbone}"] = phase_detect_path(
+            card, dev, f"detect {backbone}", spec, errors)
+        paths[f"train {backbone}"] = {
+            "nms_keep_mask_batched": phase_train_variant(
+                card, dev, f"train {backbone}", errors, backbone)}
+    paths["detect top"] = phase_detect_path(
+        card, dev, "detect top", replace(spec_main, test_mode="top"), errors,
+        batch=TOP_BATCH)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": errors[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": times[name][2],
-         "bound_by": times[name][3], "library_ms": None}
+         "bound_by": times[name][3], "library_ms": None,
+         "paths": {path: rows[name] for path, rows in paths.items()
+                   if name in rows}}
         for name in ("nms_keep_mask_batched", "batched_nms_keep")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -140,7 +140,8 @@ def test_roi_crop_pool_matches(rng, max_pool):
 
 def test_port_imports_no_jax_flax_or_cv2():
     """Importing the port, snapshotting its cfg in both modes and running a
-    CPU detect step leaves jax, flax, cv2 and the JAX package out of
+    CPU detect step of res50, of vgg16 in bf16 with TEST.MODE 'top' and of
+    mobile in bf16 leaves jax, flax, cv2 and the JAX package out of
     sys.modules."""
     code = r"""
 import sys
@@ -150,19 +151,25 @@ from tf_faster_rcnn_torch.engine import losses, train
 from tf_faster_rcnn_torch.engine.test_engine import make_detect_fn
 from tf_faster_rcnn_torch.models import targets
 from tf_faster_rcnn_torch.models.init import init_model
+from tf_faster_rcnn_torch.models import mobilenet_v1, vgg16
 from tf_faster_rcnn_torch.models.network import (FasterRCNN, ModelSpec,
                                                  spec_from_cfg)
 from tf_faster_rcnn_torch.utils import build, weights
 assert spec_from_cfg("res101", 21, "TEST") == ModelSpec("res101", 21)
 assert spec_from_cfg("res101", 21, "TRAIN").mode == "TRAIN"
-spec = ModelSpec("res50", 4, anchor_scales=(2,), anchor_ratios=(1.0,),
-                 rpn_pre_nms_top_n=32, rpn_post_nms_top_n=8, max_per_image=5)
-model = FasterRCNN(spec, device="cpu").eval()
-init_model(model, torch.Generator().manual_seed(0))
-det, dv = make_detect_fn(model, spec)(
-    torch.zeros(1, 32, 32, 3), torch.tensor([[32.0, 32.0, 1.0]]),
-    torch.tensor([[32.0, 32.0]]))
-assert det.shape == (1, 5, 6)
+for backbone, dtype, mode in (("res50", "float32", "nms"),
+                              ("vgg16", "bfloat16", "top"),
+                              ("mobile", "bfloat16", "nms")):
+    spec = ModelSpec(backbone, 4, anchor_scales=(2,), anchor_ratios=(1.0,),
+                     rpn_pre_nms_top_n=32, rpn_post_nms_top_n=8,
+                     max_per_image=5, pooling_size=2, compute_dtype=dtype,
+                     test_mode=mode, rpn_top_n=8, depth_multiplier=0.25)
+    model = FasterRCNN(spec, device="cpu").eval()
+    init_model(model, torch.Generator().manual_seed(0))
+    det, dv = make_detect_fn(model, spec)(
+        torch.zeros(1, 32, 32, 3), torch.tensor([[32.0, 32.0, 1.0]]),
+        torch.tensor([[32.0, 32.0]]))
+    assert det.shape == (1, 5, 6)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2",
                                     "tf_faster_rcnn_tpu"))

@@ -113,7 +113,7 @@ def test_tail_matches(rng, depth):
     ttail = _bridge(tres.ResNetV1Tail(depth), params)
     want = jax.jit(jtail.apply)({"params": params}, pooled)
     with torch.no_grad():
-        got = ttail(_nchw(pooled))
+        got = ttail(torch.from_numpy(pooled))       # NHWC, as cropped
     assert got.shape == (6, 2048)
     _rel_close(got.numpy(), want)
 
@@ -124,10 +124,12 @@ def _small_spec(backbone, num_classes=21):
         anchor_scales=(2, 4), rpn_pre_nms_top_n=256, rpn_post_nms_top_n=16)
 
 
-@pytest.mark.parametrize("backbone", ["res50", "res101", "res152"])
+@pytest.mark.parametrize("backbone", ["res50", "res101", "res152", "vgg16",
+                                      "mobile"])
 def test_bridge_fills_every_tensor(backbone):
     """The flax tree of the whole detector maps one to one onto the port's
-    state_dict: same keys, same shapes."""
+    state_dict: same keys, same shapes (vgg16's fc6 at the full 7x7x512,
+    mobile's depthwise kernels)."""
     spec = _small_spec(backbone)
     jspec = dataclasses.replace(jnet.spec_from_cfg(backbone, 21, "TEST"),
                                 anchor_scales=(2, 4))
@@ -185,9 +187,15 @@ def test_canvas_invariance_nonzero_bn(rng):
 
 @pytest.mark.parametrize("backbone", ["vgg16", "mobile"])
 def test_unported_backbones_raise(backbone):
+    """The last two backbones are ported: each builds, with its head's and
+    tail's widths on the RPN and the heads; an unknown backbone raises."""
     spec = dataclasses.replace(_small_spec("res101"), backbone=backbone)
-    with pytest.raises(NotImplementedError):
-        tnet.FasterRCNN(spec, device="cpu")
+    model = tnet.FasterRCNN(spec, device="cpu")
+    widths = {"vgg16": (512, 4096), "mobile": (512, 1024)}[backbone]
+    assert (model.rpn_conv.in_channels, model.cls_score.in_features) == widths
+    with pytest.raises(ValueError, match="backbone"):
+        tnet.FasterRCNN(dataclasses.replace(spec, backbone="res34"),
+                        device="cpu")
 
 
 def test_spec_defaults_are_the_cfg_defaults():
@@ -197,9 +205,23 @@ def test_spec_defaults_are_the_cfg_defaults():
         "res101", 21)
 
 
+def _common_fields(port, ref):
+    """The fields both specs have, but the three the port adds."""
+    names = {f.name for f in dataclasses.fields(ref)}
+    return {f.name: (getattr(port, f.name), getattr(ref, f.name))
+            for f in dataclasses.fields(port) if f.name in names}
+
+
+def _assert_same_spec(port, ref):
+    for name, (got, want) in _common_fields(port, ref).items():
+        assert got == want, (name, got, want)
+
+
 def test_spec_from_cfg_raises_on_train_and_unported_backbones():
-    """TRAIN builds, with the TRAIN phase's proposal counts; the unported
-    backbones and bf16 parameters still raise, in either mode."""
+    """TRAIN builds, with the TRAIN phase's proposal counts; every backbone
+    builds in either mode, and bf16 parameters too, each with the JAX
+    package's spec; the model builds from each."""
+    from tf_faster_rcnn_tpu.config import cfg as jcfg
     from tf_faster_rcnn_torch.config import cfg, reset_cfg
     spec = tnet.spec_from_cfg("res101", 21, "TRAIN")
     assert spec.mode == "TRAIN"
@@ -207,13 +229,16 @@ def test_spec_from_cfg_raises_on_train_and_unported_backbones():
     assert spec == dataclasses.replace(
         tnet.ModelSpec("res101", 21), mode="TRAIN", rpn_pre_nms_top_n=12000,
         rpn_post_nms_top_n=2000)
-    for mode in ("TRAIN", "TEST"):
-        with pytest.raises(NotImplementedError):
-            tnet.spec_from_cfg("vgg16", 21, mode)
-    cfg.TPU.PARAM_DTYPE = "bfloat16"
+    for backbone in ("vgg16", "mobile"):
+        for mode in ("TRAIN", "TEST"):
+            _assert_same_spec(tnet.spec_from_cfg(backbone, 21, mode),
+                              jnet.spec_from_cfg(backbone, 21, mode))
+    cfg.TPU.PARAM_DTYPE = jcfg.TPU.PARAM_DTYPE = "bfloat16"
     try:
-        with pytest.raises(NotImplementedError):
-            tnet.spec_from_cfg("res101", 21, "TRAIN")
+        port = tnet.spec_from_cfg("res101", 21, "TRAIN")
+        _assert_same_spec(port, jnet.spec_from_cfg("res101", 21, "TRAIN"))
+        tnet.FasterRCNN(dataclasses.replace(port, anchor_scales=(2,)),
+                        device="cpu")
     finally:
         reset_cfg()
 
@@ -222,13 +247,26 @@ def test_spec_from_cfg_raises_on_train_and_unported_backbones():
     ("TEST", "MODE", "top"), ("TPU", "SPACE_TO_DEPTH", True),
     ("TPU", "COMPUTE_DTYPE", "bfloat16"), ("TPU", "PARAM_DTYPE", "bfloat16")])
 def test_spec_from_cfg_raises_on_unported_cfg(section, key, value):
-    """The 'top' proposals, the s2d stem, bf16 compute and bf16 parameters
-    are not ported."""
+    """The 'top' proposals, bf16 compute and bf16 parameters are ported:
+    the spec builds with the JAX package's fields, for every backbone in
+    both modes, and so does the model. The s2d stem, a TPU workaround,
+    still raises."""
+    from tf_faster_rcnn_tpu.config import cfg as jcfg
     from tf_faster_rcnn_torch.config import cfg, reset_cfg
-    cfg[section][key] = value
+    cfg[section][key] = jcfg[section][key] = value
     try:
-        with pytest.raises(NotImplementedError):
-            tnet.spec_from_cfg("res101", 21, "TEST")
+        if key == "SPACE_TO_DEPTH":
+            with pytest.raises(NotImplementedError):
+                tnet.spec_from_cfg("res101", 21, "TEST")
+            return
+        for backbone in ("vgg16", "res50", "res101", "res152", "mobile"):
+            for mode in ("TEST", "TRAIN"):
+                port = tnet.spec_from_cfg(backbone, 21, mode)
+                _assert_same_spec(port,
+                                  jnet.spec_from_cfg(backbone, 21, mode))
+                tnet.FasterRCNN(dataclasses.replace(
+                    port, anchor_scales=(2,), pooling_size=2),
+                    device="cpu")
     finally:
         reset_cfg()
 
@@ -316,7 +354,4 @@ def test_train_spec_matches_the_reference_spec(name):
         ref = jnet.spec_from_cfg(name, 21, "TRAIN")
     finally:
         tcfg.reset_cfg()
-    fields = [f.name for f in dataclasses.fields(port)
-              if f.name not in ("nms_thresh", "bbox_reg", "max_per_image")]
-    assert {f: getattr(port, f) for f in fields} == {
-        f: getattr(ref, f) for f in fields}
+    _assert_same_spec(port, ref)

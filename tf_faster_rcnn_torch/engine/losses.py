@@ -12,7 +12,7 @@ package's one-hot contraction is a TPU workaround.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -78,13 +78,28 @@ def detection_losses(preds: Dict) -> Dict[str, torch.Tensor]:
 
 
 def weight_decay_loss(model: torch.nn.Module, weight_decay: float,
-                      bias_decay: bool = False):
-    """L2 regularization with tf l2_regularizer semantics: weight_decay *
-    0.5 * sum(w^2) over every conv and Linear weight, frozen ones included;
+                      bias_decay: bool = False,
+                      mobile_weight_decay: Optional[float] = None,
+                      regu_depth: bool = False):
+    """L2 regularization with tf l2_regularizer semantics: wd * 0.5 *
+    sum(w^2) over every conv and Linear weight, frozen ones included;
     biases only under bias_decay. FrozenBN's arrays are buffers and never
-    count. The MobileNet constants wait for that backbone."""
-    terms = [torch.sum(torch.square(p.to(torch.float32)))
-             for name, p in model.named_parameters()
-             if name.endswith(".weight")
-             or (bias_decay and name.endswith(".bias"))]
-    return weight_decay * 0.5 * torch.stack(terms).sum()
+    count. wd is weight_decay, but for MobileNet's head and tail, which take
+    mobile_weight_decay (MOBILENET.WEIGHT_DECAY; required for that
+    backbone), and whose depthwise kernels count only under regu_depth
+    (MOBILENET.REGU_DEPTH)."""
+    mobile = model.spec.backbone == "mobile"
+    if mobile and mobile_weight_decay is None:
+        raise ValueError("the mobile backbone needs mobile_weight_decay")
+    terms = []
+    for name, p in model.named_parameters():
+        if not (name.endswith(".weight")
+                or (bias_decay and name.endswith(".bias"))):
+            continue
+        wd = weight_decay
+        if mobile and name.startswith(("head.", "tail.")):
+            if ".depthwise." in name and not regu_depth:
+                continue
+            wd = mobile_weight_decay
+        terms.append(wd * torch.sum(torch.square(p.to(torch.float32))))
+    return 0.5 * torch.stack(terms).sum()

@@ -9,6 +9,11 @@ Port of ``tf_faster_rcnn_tpu/engine/train.py``:
   ``optax.trace`` computes it: ``v = g + m * v``, ``p -= lr * v``, with
   the biases' gradients doubled first under ``DOUBLE_BIAS``. Frozen
   parameters (``requires_grad`` False) are never touched;
+* ``TPU.PARAM_DTYPE='bfloat16'`` casts the parameters and FrozenBN's
+  buffers to bfloat16, as the JAX package casts its params tree, and the
+  momentum trace follows them; every step of the update then runs in the
+  parameter's dtype, as optax 0.2's chain does (see ``Optimizer``), so an
+  update below about 1/256 of a weight rounds away;
 * the schedule's counter is the optimizer's own, as optax's
   ``scale_by_schedule`` count: it advances only on updates that are
   applied, so a step that the NaN guard skips advances ``state.step`` but
@@ -35,7 +40,8 @@ from torch import nn
 
 from tf_faster_rcnn_torch.engine.losses import (detection_losses,
                                                 weight_decay_loss)
-from tf_faster_rcnn_torch.models.network import ModelSpec, TrainNoise
+from tf_faster_rcnn_torch.models.network import (DTYPES, ModelSpec,
+                                                 TrainNoise)
 
 __all__ = ["Optimizer", "TrainState", "all_finite", "create_train_state",
            "lr_schedule", "make_train_step", "scale_recipe", "train_loss"]
@@ -97,7 +103,13 @@ def scale_recipe(batch_size: int) -> dict:
 class Optimizer:
     """SGD with TF-form momentum on a schedule: for each trainable
     parameter, g doubled if it is a bias under double_bias, then
-    ``v = g + momentum * v`` and ``p = p + (-lr(count)) * v``."""
+    ``v = g + momentum * v`` and ``p = p + (-lr(count)) * v``.
+
+    Each operation rounds to the parameter's dtype, as the optax chain
+    does: the momentum and the learning rate are rounded to it first
+    (optax.trace multiplies by a weakly typed Python float;
+    scale_by_schedule casts the step size to the update's dtype), and
+    apply_updates adds in it. At float32 this is plain float32 SGD."""
     lr_fn: Callable
     momentum: float
     double_bias: bool
@@ -110,12 +122,18 @@ class Optimizer:
         device. With finite (a 0-d bool tensor), the update is selected:
         where it is False, every tensor keeps its value and count stays."""
         neg_lr = -self.lr_fn(count)
+        scalars = {}
         for name, p in params.items():
+            if p.dtype not in scalars:
+                scalars[p.dtype] = (
+                    torch.full((), self.momentum, dtype=p.dtype,
+                               device=p.device), neg_lr.to(p.dtype))
+            momentum, step = scalars[p.dtype]
             g = grads[name]
             if self.double_bias and name.endswith(".bias"):
                 g = g * 2.0
-            v = g + self.momentum * trace[name]
-            new_p = p + neg_lr * v
+            v = g + momentum * trace[name]
+            new_p = p + step * v
             if finite is not None:
                 v = torch.where(finite, v, trace[name])
                 new_p = torch.where(finite, new_p, p)
@@ -168,13 +186,12 @@ def create_train_state(spec: ModelSpec, model: nn.Module,
                        batch_size: int = 1) -> TrainState:
     """Build the state from the port's cfg (TRAIN.LEARNING_RATE, MOMENTUM,
     GAMMA, STEPSIZE, DOUBLE_BIAS and the TPU schedule keys). batch_size is
-    the global images per step; > 1 applies scale_recipe. The momentum
-    trace starts at zero, on the model's device."""
+    the global images per step; > 1 applies scale_recipe. Under
+    TPU.PARAM_DTYPE the model's parameters and buffers are cast to that
+    dtype in place. The momentum trace starts at zero, on the model's
+    device, in the parameters' dtype."""
     from tf_faster_rcnn_torch.config import cfg
-    if cfg.TPU.PARAM_DTYPE != "float32":
-        raise NotImplementedError(
-            f"TPU.PARAM_DTYPE {cfg.TPU.PARAM_DTYPE!r} is not ported yet; see "
-            "ROADMAP.md (Queue A)")
+    model.to(DTYPES[str(cfg.TPU.PARAM_DTYPE)])
     if model.spec != spec:
         raise ValueError("the model was built from another spec")
     recipe = scale_recipe(batch_size)
@@ -202,14 +219,17 @@ def all_finite(total: torch.Tensor, grads) -> torch.Tensor:
 def train_loss(model: nn.Module, batch: Dict[str, torch.Tensor],
                weight_decay: float, bias_decay: bool = False,
                noise: Optional[TrainNoise] = None,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               mobile_weight_decay: Optional[float] = None,
+               regu_depth: bool = False):
     """The TRAIN forward and its loss: (total, metrics), total with its
     graph, metrics detached (the four losses, regularization_loss and
-    total_loss)."""
+    total_loss). The decay arguments are weight_decay_loss's."""
     out = model(batch["image"], batch["im_info"], batch["gt_boxes"],
                 batch["gt_valid"], noise=noise, generator=generator)
     losses = detection_losses(out)
-    reg = weight_decay_loss(model, weight_decay, bias_decay)
+    reg = weight_decay_loss(model, weight_decay, bias_decay,
+                            mobile_weight_decay, regu_depth)
     total = losses["total_loss"] + reg
     metrics = {k: v.detach() for k, v in losses.items()}
     metrics["regularization_loss"] = reg.detach()
@@ -219,13 +239,17 @@ def train_loss(model: nn.Module, batch: Dict[str, torch.Tensor],
 
 def make_train_step(model: nn.Module, spec: ModelSpec, *,
                     weight_decay: float, bias_decay: bool = False,
+                    mobile_weight_decay: Optional[float] = None,
+                    regu_depth: bool = False,
                     lr_fn: Optional[Callable] = None,
                     nan_guard: bool = False) -> Callable:
     """Returns ``step(state, batch, noise=None) -> (state, metrics)``.
 
     batch: dict of tensors on the model's device: 'image' [B, H, W, 3],
     'im_info' [B, 3], 'gt_boxes' [B, G, 5], 'gt_valid' [B, G]. noise: the
-    step's TrainNoise, or None to draw it from state.generator. The state
+    step's TrainNoise, or None to draw it from state.generator.
+    mobile_weight_decay and regu_depth: MobileNet's decay
+    (engine/losses.py::weight_decay_loss). The state
     is updated in place and returned; metrics are 0-d device tensors: the
     four losses, regularization_loss, total_loss, step_skipped under
     nan_guard and learning_rate (lr_fn at the step) if lr_fn is given.
@@ -241,7 +265,8 @@ def make_train_step(model: nn.Module, spec: ModelSpec, *,
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              noise: Optional[TrainNoise] = None):
         total, metrics = train_loss(model, batch, weight_decay, bias_decay,
-                                    noise, state.generator)
+                                    noise, state.generator,
+                                    mobile_weight_decay, regu_depth)
         params = state.params()
         grads = dict(zip(params, torch.autograd.grad(total,
                                                      list(params.values()))))

@@ -8,9 +8,12 @@ into the port, so a test feeds both frameworks the same numbers.
 Every tensor is drawn nonzero, unlike the JAX package's from-scratch init,
 which zeroes the expand conv of each unit (that leaves every residual branch
 dead in a smoke run) and the BN shifts (which hides a canvas-masking fault).
-The scales keep activations O(1): the stem conv is He / 128 for raw-pixel
-inputs, each unit's expand conv (``conv3``) a tenth of He, the RPN and class
-heads 0.01 and the box head 0.001, as in the reference's initializers.
+The scales keep activations O(1): the first conv of each backbone (res
+``conv1``, vgg16 ``conv1_1``, mobile ``conv2d_0``) is He / 128 for
+raw-pixel inputs, each ResNet unit's expand conv (``conv3``) a tenth of He,
+every other backbone kernel He (a depthwise kernel's fan-in is its 3x3),
+the RPN and class heads 0.01 and the box head 0.001, as in the reference's
+initializers.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import numpy as np
 import torch
 
 __all__ = ["recipe", "init_model", "numpy_params"]
+
+_STEMS = (["head", "conv1"], ["head", "conv1_1"], ["head", "base", "conv2d_0"])
 
 
 def recipe(path: str, leaf: str, fan_in: int):
@@ -40,7 +45,7 @@ def recipe(path: str, leaf: str, fan_in: int):
     he = math.sqrt(2.0 / fan_in)
     top = parts[0]
     if top in ("head", "tail"):
-        if parts == ["head", "conv1"]:
+        if parts in _STEMS:
             return ("normal", he / 128.0)          # raw-pixel stem input
         if parts[-2:] == ["conv3", "conv"]:
             return ("normal", 0.1 * he)            # expand conv of a unit

@@ -5,9 +5,15 @@ Port of ``tf_faster_rcnn_tpu/models/layers.py``:
 * ``ConvSame``: slim's conv2d_same. For stride > 1 an explicit pad of
   (k-1)//2 before and the rest after, then a VALID conv; for stride 1 a SAME
   conv. For the odd kernels of every backbone both are a symmetric pad.
+  ``groups`` = channels makes it MobileNet's depthwise conv;
+* ``ConvSame`` and ``Dense`` (a Linear) compute in their compute dtype, as
+  flax's ``dtype=`` does: the input, weight and bias are cast to it at each
+  call, so float32 parameters stay the master copy and their gradients
+  stay float32;
 * ``FrozenBatchNorm``: the reference's frozen BN, an affine transform from
-  four buffers. The fold runs in float32; the per-element affine in the
-  activation's dtype.
+  four buffers. The fold runs in the buffers' dtype (float32, or bfloat16
+  under TPU.PARAM_DTYPE as the JAX package casts them); the per-element
+  affine in the activation's dtype.
 * ``mask_valid`` / ``shrink_valid``: per-image extent masking on a padded
   canvas, which makes the features independent of the canvas size.
 """
@@ -15,10 +21,11 @@ Port of ``tf_faster_rcnn_tpu/models/layers.py``:
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["same_padding", "ConvSame", "FrozenBatchNorm", "mask_valid",
-           "shrink_valid"]
+__all__ = ["same_padding", "ConvSame", "Dense", "FrozenBatchNorm",
+           "mask_valid", "shrink_valid"]
 
 
 def same_padding(kernel: int, stride: int) -> int:
@@ -32,12 +39,35 @@ def same_padding(kernel: int, stride: int) -> int:
 
 
 class ConvSame(nn.Conv2d):
-    """nn.Conv2d with slim conv2d_same padding (NCHW, OIHW weight)."""
+    """nn.Conv2d with slim conv2d_same padding (NCHW, OIHW weight; a
+    depthwise kernel [C, 1, k, k] with groups=C), computing in
+    compute_dtype."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
-                 stride: int = 1, bias: bool = True):
+                 stride: int = 1, bias: bool = True, groups: int = 1,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__(in_channels, out_channels, kernel, stride,
-                         padding=same_padding(kernel, stride), bias=bias)
+                         padding=same_padding(kernel, stride), bias=bias,
+                         groups=groups)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class Dense(nn.Linear):
+    """nn.Linear computing in compute_dtype (flax Dense with dtype=)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class FrozenBatchNorm(nn.Module):
@@ -53,7 +83,10 @@ class FrozenBatchNorm(nn.Module):
                                                   dtype=torch.float32))
 
     def forward(self, x):
-        inv = self.scale / torch.sqrt(self.var + self.epsilon)
+        # in the buffers' dtype, as the JAX fold runs in its params' dtype;
+        # epsilon rounded to it first, as JAX rounds a weakly typed scalar
+        eps = float(torch.tensor(self.epsilon, dtype=self.var.dtype))
+        inv = self.scale / torch.sqrt(self.var + eps)
         shift = self.bias - self.mean * inv
         shape = (1, -1) + (1,) * (x.ndim - 2)
         return x * inv.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)

@@ -9,6 +9,7 @@ path joined with dots (``utils/weights.py``).
 * head: blocks 1-3 with strides (2, 2, 1), each block's stride on its LAST
   unit, so conv4 ends at stride 16;
 * tail: block4 (stride 1) on the RoI crops, then a spatial mean;
+* every conv computes in the compute dtype (``layers.ConvSame``);
 * freezing: every BN is frozen (buffers), the stem always and the first
   ``fixed_blocks`` blocks too. The head detaches at that boundary, as the
   JAX head stops the gradient there, so no backward pass runs through the
@@ -36,9 +37,11 @@ _BASE_DEPTHS = (64, 128, 256, 512)
 
 class _ConvBN(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 1,
-                 stride: int = 1, relu: bool = True):
+                 stride: int = 1, relu: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = ConvSame(in_ch, out_ch, kernel, stride, bias=False)
+        self.conv = ConvSame(in_ch, out_ch, kernel, stride, bias=False,
+                             compute_dtype=compute_dtype)
         self.bn = FrozenBatchNorm(out_ch)
         self.relu = relu
 
@@ -52,17 +55,22 @@ class Bottleneck(nn.Module):
     after the residual add. The shortcut is a stride subsample when the
     depth is unchanged, else a 1x1/stride conv + BN."""
 
-    def __init__(self, in_ch: int, base_depth: int, stride: int):
+    def __init__(self, in_ch: int, base_depth: int, stride: int,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         out_ch = base_depth * 4
         self.stride = stride
+        dt = compute_dtype
         if in_ch != out_ch:
-            self.shortcut = _ConvBN(in_ch, out_ch, 1, stride, relu=False)
+            self.shortcut = _ConvBN(in_ch, out_ch, 1, stride, relu=False,
+                                    compute_dtype=dt)
         else:
             self.shortcut = None
-        self.conv1 = _ConvBN(in_ch, base_depth, 1, 1)
-        self.conv2 = _ConvBN(base_depth, base_depth, 3, stride)
-        self.conv3 = _ConvBN(base_depth, out_ch, 1, 1, relu=False)
+        self.conv1 = _ConvBN(in_ch, base_depth, 1, 1, compute_dtype=dt)
+        self.conv2 = _ConvBN(base_depth, base_depth, 3, stride,
+                             compute_dtype=dt)
+        self.conv3 = _ConvBN(base_depth, out_ch, 1, 1, relu=False,
+                             compute_dtype=dt)
 
     def forward(self, x, valid_hw=None):
         """valid_hw: [B, 2] valid cell extents of x. The margin is re-zeroed
@@ -83,12 +91,13 @@ class Bottleneck(nn.Module):
 
 class _Block(nn.Module):
     def __init__(self, in_ch: int, base_depth: int, num_units: int,
-                 stride: int):
+                 stride: int, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.strides = [stride if u == num_units - 1 else 1
                         for u in range(num_units)]
         for u, s in enumerate(self.strides):
-            self.add_module(f"unit_{u + 1}", Bottleneck(in_ch, base_depth, s))
+            self.add_module(f"unit_{u + 1}", Bottleneck(
+                in_ch, base_depth, s, compute_dtype))
             in_ch = base_depth * 4
 
     def forward(self, x, valid_hw=None):
@@ -104,17 +113,22 @@ class ResNetV1Head(nn.Module):
     gradient stops after the stem and after each of the first fixed_blocks
     blocks."""
 
-    def __init__(self, num_layers: int = 101, fixed_blocks: int = 0):
+    out_channels = 1024
+
+    def __init__(self, num_layers: int = 101, fixed_blocks: int = 0,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         units = BLOCK_UNITS[num_layers]
         self.fixed_blocks = fixed_blocks
-        self.conv1 = ConvSame(3, 64, 7, 2, bias=False)
+        self.conv1 = ConvSame(3, 64, 7, 2, bias=False,
+                              compute_dtype=compute_dtype)
         self.conv1_bn = FrozenBatchNorm(64)
         self.block_strides = (2, 2, 1)
         in_ch = 64
         for b in range(3):
             self.add_module(f"block{b + 1}", _Block(
-                in_ch, _BASE_DEPTHS[b], units[b], self.block_strides[b]))
+                in_ch, _BASE_DEPTHS[b], units[b], self.block_strides[b],
+                compute_dtype))
             in_ch = _BASE_DEPTHS[b] * 4
 
     def forward(self, x, valid_hw=None):
@@ -142,16 +156,19 @@ class ResNetV1Head(nn.Module):
 
 
 class ResNetV1Tail(nn.Module):
-    """block4 on pooled crops [N, 1024, 7, 7], then the spatial mean ->
-    [N, 2048]."""
+    """block4 on pooled crops [N, 7, 7, 1024] (NHWC, as roi_crop_pool
+    returns them), then the spatial mean -> [N, 2048]."""
 
-    def __init__(self, num_layers: int = 101):
+    out_channels = 2048
+
+    def __init__(self, num_layers: int = 101,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.block4 = _Block(_BASE_DEPTHS[2] * 4, _BASE_DEPTHS[3],
-                             BLOCK_UNITS[num_layers][3], 1)
+                             BLOCK_UNITS[num_layers][3], 1, compute_dtype)
 
     def forward(self, pooled):
-        return self.block4(pooled).mean(dim=(2, 3))
+        return self.block4(pooled.permute(0, 3, 1, 2)).mean(dim=(2, 3))
 
 
 def trainable_filter(name: str, fixed_blocks: int) -> bool:

@@ -32,8 +32,10 @@ def nms_keep_mask(boxes, valid, iou_threshold, *, plus_one=False,
     single = boxes.ndim == 2
     if single:
         boxes, valid = boxes[None], valid[None]
+    # float32 only: the wrapper raises on another dtype (a bfloat16 box is
+    # a caller's bug, not a cast to make here)
     keep = nms_keep_mask_batched(
-        boxes.to(torch.float32).contiguous(), valid.contiguous(),
+        boxes.contiguous(), valid.contiguous(),
         float(iou_threshold), plus_one=plus_one, suppress_eq=suppress_eq,
         max_keep=max_keep)
     return keep[0] if single else keep

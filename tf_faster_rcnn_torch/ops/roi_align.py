@@ -10,6 +10,14 @@ has no Pallas kernel here, only an XLA einsum. The sampling rules:
 * a sample whose src falls outside [0, limit] in either dim is 0.0, where
   limit is S-1, or valid-1 for an image that covers only part of a padded
   canvas. The range test comes before the clip to [0, S-1].
+
+The box arithmetic is float32. The blend of the four corners is float32
+too, whatever the features' dtype, and the result is rounded to that dtype
+once: a bfloat16 crop is the float32 crop of the same features to within
+one rounding. (The JAX einsum rounds its bfloat16 weights, its
+intermediate and its result, so the two agree to a few bfloat16 quanta of
+the feature scale, not bit for bit; tests/test_torch_backbones.py bounds
+both against the float32 crop.)
 """
 
 from __future__ import annotations
@@ -58,14 +66,15 @@ def _crop_batched(features, boxes, crop_size, valid_hw=None):
         idx = base + yy[..., :, None] * w + xx[..., None, :]
         return flat.index_select(0, idx.reshape(-1)).reshape(idx.shape + (c,))
 
-    fy_ = fy[..., :, None, None].to(dtype)
-    fx_ = fx[..., None, :, None].to(dtype)
+    # float32 weights: a bfloat16 corner times them promotes to float32
+    fy_ = fy[..., :, None, None]
+    fx_ = fx[..., None, :, None]
     top = g(y0, x0) * (1 - fx_) + g(y0, x1) * fx_
     bot = g(y1, x0) * (1 - fx_) + g(y1, x1) * fx_
     out = top * (1 - fy_) + bot * fy_
     ok = (oky[..., :, None] & okx[..., None, :])[..., None]
-    return torch.where(ok, out, torch.zeros((), dtype=dtype,
-                                            device=out.device))
+    return torch.where(ok, out, torch.zeros((), dtype=out.dtype,
+                                            device=out.device)).to(dtype)
 
 
 def crop_and_resize(image, boxes, crop_size, valid_hw=None):

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Where the device time of one res101 train step goes, on one NVIDIA GPU.
+"""Where the device time of one res101 train or detect step goes, on one
+NVIDIA GPU.
 
     python3 tf_faster_rcnn_torch/tools/train_profile.py [--out PATH.json]
+        [--dtype float32|bfloat16] [--detect]
 
 Builds chip_smoke.py's train path (res101, B = 8 on the 608x1024 canvas,
 12000 -> 2000 proposals, experiments/cfgs/res101.yml's TRAIN settings,
-float32 with TF32 off, seeded random weights), warms it up, then measures:
+TPU.COMPUTE_DTYPE --dtype with TF32 off, seeded random weights), warms it
+up, then measures:
 
 1. phases, by CUDA events around the parts of ``make_train_step`` called in
    its order (``train_loss``; ``torch.autograd.grad``; the NaN guard and
@@ -17,22 +20,30 @@ float32 with TF32 off, seeded random weights), warms it up, then measures:
    in the window from the first kernel to the last, K1's kernel time, and
    the kernels by device time, in families.
 
+With --detect it builds chip_smoke.py's detect path instead (res101 TEST,
+B = 8, 6000 -> 300, through make_detect_fn) and measures 3 only, with the
+host's time to enqueue one step (the step's Python and launches, without
+waiting for the device) beside it.
+
 Prints one JSON line per measurement, each with the card's name and power
 limit; --out gets the whole result, the top kernels included.
 """
 
 import argparse
 import collections
+import dataclasses
 import json
 import os
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 FAMILIES = (("K1 (nms_keep_kernel)", ("nms_keep",)),
             ("convolution / GEMM", ("conv", "xmma", "gemm", "cudnn", "sm80_",
-                                    "sm90_", "implicit", "wgrad", "dgrad")),
+                                    "sm90_", "implicit", "wgrad", "dgrad",
+                                    "nvjet")),
             ("gather / scatter / index", ("index", "gather", "scatter")),
             ("sort", ("sort", "radix")),
             ("reduction", ("reduce",)),
@@ -50,25 +61,63 @@ def family(name):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None)
+    parser.add_argument("--dtype", default="float32",
+                        choices=("float32", "bfloat16"))
+    parser.add_argument("--detect", action="store_true")
     args = parser.parse_args()
     sys.path.insert(0, ROOT)
     import chip_smoke as smoke
+    import torch
+
+    card = smoke.phase_device()
+    dev = torch.device("cuda", 0)
+    result = {"card": card, "batch": smoke.BATCH, "canvas": smoke.CANVAS,
+              "dtype": args.dtype, "path": "detect" if args.detect else "train"}
+
+    def emit(key, value):
+        result[key] = value
+        print(json.dumps({key: value, "card": card, "dtype": args.dtype,
+                          "path": result["path"]}))
+
+    if args.detect:
+        spec = dataclasses.replace(smoke.build_spec(), compute_dtype=args.dtype)
+        _, detect, inputs = smoke.build_detect_path(dev, spec)
+        with torch.inference_mode():
+            def run():
+                return detect(*inputs)
+            for _ in range(smoke.WARMUP):
+                run()
+            torch.cuda.synchronize()
+            enqueue = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                run()
+                enqueue.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+            emit("host_enqueue_ms", sorted(enqueue)[2])
+            emit("step_ms", smoke.timed(run))
+            profile_steps(result, emit, run)
+    else:
+        profile_train(args, smoke, dev, result, emit)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+
+
+def profile_train(args, smoke, dev, result, emit):
+    """Sections 1-3 for the train step."""
     import torch
     from tf_faster_rcnn_torch.config import cfg
     from tf_faster_rcnn_torch.engine.train import all_finite, train_loss
     from tf_faster_rcnn_torch.models import network
 
-    card = smoke.phase_device()
-    dev = torch.device("cuda", 0)
-    spec, state, step, batch = smoke.build_train_path(dev)
+    spec, state, step, batch = smoke.build_train_path(
+        dev, extra_cfg=["TPU.COMPUTE_DTYPE", args.dtype])
     for _ in range(smoke.WARMUP):
         step(state, batch)
     torch.cuda.synchronize()
-    result = {"card": card, "batch": smoke.BATCH, "canvas": smoke.CANVAS}
-
-    def emit(key, value):
-        result[key] = value
-        print(json.dumps({key: value, "card": card}))
 
     # 1. phases of the step, in the step's own order
     model, wd = state.model, float(cfg.TRAIN.WEIGHT_DECAY)
@@ -118,13 +167,18 @@ def main():
         targets[name] = smoke.timed(lambda: fn(*a, **k))
     emit("targets_ms", targets)
 
-    # 3. the profiler's kernel table over 3 steps
+    profile_steps(result, emit, lambda: step(state, batch))
+
+
+def profile_steps(result, emit, run):
+    """Section 3: the profiler's kernel table over 3 calls of run()."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
-            step(state, batch)
+            run()
         torch.cuda.synchronize()
     spans, kernels = [], collections.Counter()
     for e in prof.profiler.kineto_results.events():
@@ -157,11 +211,6 @@ def main():
     result["top_kernels_ms_per_step"] = kernels.most_common(40)
     for name, ms in kernels.most_common(15):
         print(f"  {ms:9.3f} ms  {family(name):26s} {name[:110]}")
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(result, f, indent=1)
 
 
 if __name__ == "__main__":
