@@ -56,7 +56,23 @@ Phases, in order; any failure raises and the exit code is nonzero:
    conv1-conv2, mobile layers 0-4); their step times;
 10. TEST.MODE 'top': one res101 detect step (B = 2, TEST.RPN_TOP_N 5000 of
    the 21888 anchors): K1 not launched, K2 launched and equal to its plain
-   version, the proposals sorted by descending score.
+   version, the proposals sorted by descending score;
+11. eval: a temporary VOCdevkit2007 test split of 64 images at VOC's sizes
+   (40 landscape 500x375, 24 portrait 375x500, so both canvases 608x1024
+   and 1024x608 run), painted rectangles of the 20 classes with XML
+   annotations, binary PPM under .jpg names. test_net in process at
+   experiments/cfgs/res101.yml (float32) with TPU.IMS_PER_DEVICE 8, on
+   phase 4's seeded weights: K1 and K2 launched once per batch, each equal
+   to its plain version on every input the eval path gave it; the first
+   batch's canvases, built on the card with no host sync, within 0.02 of
+   CPU-built ones, and its detections equal to make_detect_fn's on them;
+   detections.pkl of 21 x 64 float32 [N, 5] arrays, mAP in [0, 1]; the
+   ground truth, fed through the same imdb, scoring mAP 1.0. A second run
+   gives the same detections and is timed: images/s from decode to mAP,
+   im_detect and misc per batch, and the split of a batch (decode, prep on
+   the card, detect step). Then the CLIs in subprocesses: tools.test_net on
+   the weights saved by save_params gives the same detections.pkl, and
+   tools.reval --nms the mAP of the host re-NMS of it.
 
 Each phase from 7 on prints its wall time. The kernel line gives, beside
 each kernel's main-path fields (phase 4), its launches, graph-replay time,
@@ -111,6 +127,14 @@ TRAIN_STEPS = 3
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
 FLOP_PER_TEST = 16
+# phase 11: a VOCdevkit2007 test split at VOC's own sizes, (h, w)
+EVAL_LANDSCAPE, EVAL_PORTRAIT = 40, 24
+EVAL_HW = ((375, 500), (500, 375))
+EVAL_OBJECTS = 3
+EVAL_CFG_FILE = "experiments/cfgs/res101.yml"
+EVAL_SET = ["TPU.IMS_PER_DEVICE", str(BATCH)]
+EVAL_WEIGHTS = "res101_seed0.pt"
+PREP_TOL = 0.02
 REPLACES = {
     "nms_keep_mask_batched": "tf_faster_rcnn_tpu/ops/pallas_nms.py:55",
     "batched_nms_keep": "tf_faster_rcnn_tpu/ops/pallas_nms.py:149",
@@ -435,9 +459,10 @@ def coco_shape_inputs(dev):
 
 
 @contextlib.contextmanager
-def nms_route(plain=False, record=None):
+def nms_route(plain=False, record=None, log=None):
     """Route the detect path's two NMS calls: through the plain versions
-    (plain=True), and/or record each call's arguments in record[name]."""
+    (plain=True), and/or record each call's arguments in record[name], and/or
+    append every call's (name, args, kwargs) to log."""
     from tf_faster_rcnn_torch.engine import detect as detect_mod
     from tf_faster_rcnn_torch.ops import nms as nms_mod
     from tf_faster_rcnn_torch.ops import nms_kernels as K
@@ -449,6 +474,8 @@ def nms_route(plain=False, record=None):
         def call(*args, **kwargs):
             if record is not None:
                 record[name] = (args, kwargs)
+            if log is not None:
+                log.append((name, args, kwargs))
             return fn(*args, **kwargs)
         return call
 
@@ -841,28 +868,31 @@ def phase_train_path(card, spec, state, step, batch, errors,
     print(f"  K1 E per image on the train path: "
           f"{k1_extent(got, kwargs['max_keep'])} of N={got.shape[1]}")
 
-    # the step makes no host sync: torch warns at each synchronizing call
-    # it knows of (a prototype: not every one, by its own notice)
-    def syncs(fn):
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        return [str(w.message) for w in caught
-                if "called a synchronizing" in str(w.message)]
-
-    control = syncs(lambda: float(batch["im_info"][0, 0]))
-    found = syncs(lambda: step(state, batch))
+    # the step makes no host sync
+    control = host_syncs(lambda: float(batch["im_info"][0, 0]))
+    found = host_syncs(lambda: step(state, batch))
     print(f"  host syncs in one train step: {len(found)} (the detector "
           f"found {len(control)} in one .item())")
     if found or not control:
         raise AssertionError(f"the train step synchronizes ({found[:1]}), "
                              "or the detector finds no sync")
     return launches, captured
+
+
+def host_syncs(fn):
+    """The host syncs fn() makes: torch warns at each synchronizing call it
+    knows of (a prototype: not every one, by its own notice)."""
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [str(w.message) for w in caught
+            if "called a synchronizing" in str(w.message)]
 
 
 def phase_train_times(card, state, step, batch, captured, label="train",
@@ -995,6 +1025,286 @@ def phase_train_variant(card, dev, label, errors, backbone="res101",
     print(f"phase {label}: {time.perf_counter() - t0:.1f} s")
     return row
 
+def write_eval_tree(root, seed=SEED):
+    """A VOCdevkit2007 test split under root: EVAL_LANDSCAPE landscape and
+    EVAL_PORTRAIT portrait images of dark noise, each with EVAL_OBJECTS
+    painted rectangles whose classes cycle through the 20 VOC classes, as
+    binary PPM under .jpg names, with XML annotations (1-based corners)."""
+    from tf_faster_rcnn_torch.data.blob import write_ppm
+    from tf_faster_rcnn_torch.datasets.pascal_voc import VOC_CLASSES
+    rng = np.random.RandomState(seed)
+    voc = os.path.join(root, "VOCdevkit2007", "VOC2007")
+    for sub in ("JPEGImages", "Annotations", os.path.join("ImageSets",
+                                                          "Main")):
+        os.makedirs(os.path.join(voc, sub), exist_ok=True)
+    names, n_obj = [], 0
+    for i in range(EVAL_LANDSCAPE + EVAL_PORTRAIT):
+        h, w = EVAL_HW[int(i >= EVAL_LANDSCAPE)]
+        im = rng.randint(0, 60, (h, w, 3)).astype(np.uint8)
+        xml = ""
+        for _ in range(EVAL_OBJECTS):
+            bw, bh = rng.randint(40, w // 2), rng.randint(40, h // 2)
+            x1, y1 = rng.randint(0, w - bw), rng.randint(0, h - bh)
+            im[y1:y1 + bh, x1:x1 + bw] = rng.randint(140, 255, 3)
+            xml += (f"<object><name>{VOC_CLASSES[1 + n_obj % 20]}</name>"
+                    "<difficult>0</difficult><bndbox>"
+                    f"<xmin>{x1 + 1}</xmin><ymin>{y1 + 1}</ymin>"
+                    f"<xmax>{x1 + bw}</xmax><ymax>{y1 + bh}</ymax>"
+                    "</bndbox></object>")
+            n_obj += 1
+        name = f"{i:06d}"
+        names.append(name)
+        write_ppm(os.path.join(voc, "JPEGImages", name + ".jpg"), im)
+        with open(os.path.join(voc, "Annotations", name + ".xml"), "w") as f:
+            f.write(f"<annotation><size><width>{w}</width><height>{h}"
+                    f"</height><depth>3</depth></size>{xml}</annotation>")
+    with open(os.path.join(voc, "ImageSets", "Main", "test.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+
+
+def host_ms(fn, iters=5):
+    """Mean host time of fn() to a synchronize, after one warm-up, ms."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / iters * 1e3
+
+
+def quiet(fn):
+    """(fn(), the lines fn printed)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue().splitlines()
+
+
+def load_pickle(path):
+    import pickle
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def equal_all_boxes(a, b):
+    """Two detections.pkl trees: the same shape and equal arrays."""
+    return len(a) == len(b) and all(
+        len(ra) == len(rb) and all(np.array_equal(np.asarray(x), np.asarray(y))
+                                   for x, y in zip(ra, rb))
+        for ra, rb in zip(a, b))
+
+
+def phase_eval(card, dev, errors):
+    """Phase 11 (docstring): test_net and reval over a VOC tree on the
+    card, in process and through the CLIs; returns the kernels' rows."""
+    import tempfile
+    import torch
+    from tf_faster_rcnn_torch.config import (cfg, cfg_from_file,
+                                             cfg_from_list, reset_cfg)
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        write_eval_tree(tmp)
+        settings = EVAL_SET + ["DATA_DIR", tmp, "ROOT_DIR", tmp]
+        reset_cfg()
+        cfg_from_file(os.path.join(root, EVAL_CFG_FILE))
+        cfg_from_list(settings)
+        try:
+            rows, model, all_boxes = eval_in_process(card, dev, errors, tmp)
+            weights = os.path.join(tmp, EVAL_WEIGHTS)
+            from tf_faster_rcnn_torch.utils.checkpoint import save_params
+            save_params(weights, model)
+            del model
+            torch.cuda.empty_cache()
+            eval_cli(root, tmp, weights, settings, all_boxes,
+                     float(cfg.TEST.NMS))
+        finally:
+            reset_cfg()
+    print(f"phase eval f32: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def eval_in_process(card, dev, errors, tmp):
+    """test_net at the cfg in force (experiments/cfgs/res101.yml, B = 8) on
+    phase 4's seeded weights: launches, kernels against their plain
+    versions on the path's own inputs, the first batch's card canvases
+    against CPU-built ones and its detections against make_detect_fn's,
+    detections.pkl, mAP, ground truth scoring 1.0; then a second, timed
+    run. Returns (the kernels' rows, the model, the run's all_boxes)."""
+    import torch
+    from tf_faster_rcnn_torch.config import bucket_index, canvas_buckets, cfg
+    from tf_faster_rcnn_torch.data.blob import image_size, read_image_bgr
+    from tf_faster_rcnn_torch.datasets.factory import get_imdb
+    from tf_faster_rcnn_torch.engine import test_engine as E
+    from tf_faster_rcnn_torch.models.init import init_model
+    from tf_faster_rcnn_torch.models.network import FasterRCNN, spec_from_cfg
+    from tf_faster_rcnn_torch.ops import nms_kernels as K
+    spec = spec_from_cfg("res101", NUM_CLASSES, "TEST")
+    if spec.compute_dtype != "float32" or int(cfg.TPU.IMS_PER_DEVICE) != BATCH:
+        raise AssertionError(f"eval cfg: {spec.compute_dtype}, batch "
+                             f"{cfg.TPU.IMS_PER_DEVICE}")
+    model = FasterRCNN(spec).eval()
+    init_model(model, torch.Generator().manual_seed(SEED))
+    imdb = get_imdb("voc_2007_test")
+    detect = E.make_detect_fn(model, spec)
+    first = {}
+
+    def recording(image, im_info, orig_hw):
+        out = detect(image, im_info, orig_hw)
+        if not first:
+            first["in"] = tuple(x.clone() for x in (image, im_info, orig_hw))
+            first["out"] = tuple(x.clone() for x in out)
+        return out
+
+    out_dir = os.path.join(tmp, "in_process")
+    calls = []
+    K.reset_launch_counts()
+    with nms_route(log=calls):
+        mean_ap, lines = quiet(lambda: E.test_net(
+            model, spec, imdb, "in_process", output_dir=out_dir,
+            detect_fn=recording))
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    buckets = canvas_buckets(cfg.TEST)
+    sizes = [image_size(imdb.image_path_at(i)) for i in range(imdb.num_images)]
+    groups = [[i for i, hw in enumerate(sizes)
+               if bucket_index(*hw, buckets) == k]
+              for k in range(len(buckets))]
+    n_batches = sum(-(-len(g) // BATCH) for g in groups)
+    print(f"eval path: res101 float32 B={BATCH} canvases {buckets}, "
+          f"{imdb.num_images} images ({[len(g) for g in groups]} by bucket, "
+          f"{n_batches} batches); launches {launches}; "
+          + [ln for ln in lines if ln.startswith("[voc] mAP")][-1])
+    want = {"nms_keep_mask_batched": n_batches, "batched_nms_keep": n_batches}
+    if launches != want or len(buckets) != 2:
+        raise AssertionError(f"eval: launches {launches}, want {want}; "
+                             f"buckets {buckets}")
+    for name, args, kwargs in calls:
+        kernel, plain = kernel_pairs()[name]
+        check_equal(errors, name, kernel(*args, **kwargs),
+                    plain(*args, **kwargs),
+                    f"eval path {tuple(args[0].shape)} {kwargs}")
+
+    # the first batch: canvases built on the card against CPU-built ones,
+    # with no host sync; detections against make_detect_fn's
+    ims = [read_image_bgr(imdb.image_path_at(i)) for i in groups[0][:BATCH]]
+    cpu = E._prep_batch(ims, buckets[0], "cpu")
+    card_in = first["in"]
+    prep_err = float((card_in[0].cpu() - cpu[0]).abs().max())
+    exact = all(torch.equal(card_in[j].cpu(), cpu[j]) for j in (1, 2))
+    control = host_syncs(lambda: float(card_in[1][0, 0]))
+    found = host_syncs(lambda: E._prep_batch(ims, buckets[0], dev))
+    d, v = detect(*card_in)
+    same = torch.equal(d, first["out"][0]) and torch.equal(v, first["out"][1])
+    print(f"  first batch: card canvases vs CPU-built max |diff| "
+          f"{prep_err:.3g} (tol {PREP_TOL}), im_info and orig_hw equal {exact}; host syncs "
+          f"in its prep {len(found)} (the detector found {len(control)} in "
+          f"one .item()); detections equal to make_detect_fn's {same}")
+    if prep_err > PREP_TOL or not exact or found or not control or not same:
+        raise AssertionError("eval: first batch's canvases or detections")
+
+    all_boxes = load_pickle(os.path.join(out_dir, "detections.pkl"))
+    shape_ok = len(all_boxes) == NUM_CLASSES and all(
+        len(row) == imdb.num_images for row in all_boxes) and all(
+        b.dtype == np.float32 and b.shape[1:] == (5,)
+        for row in all_boxes[1:] for b in row)
+    n_dets = sum(len(b) for row in all_boxes[1:] for b in row)
+    gt_boxes = [[np.zeros((0, 5), np.float32)] * imdb.num_images
+                for _ in range(NUM_CLASSES)]
+    for i, entry in enumerate(imdb.roidb):
+        for c in range(1, NUM_CLASSES):
+            boxes = entry["boxes"][entry["gt_classes"] == c]
+            gt_boxes[c][i] = np.hstack([boxes, np.ones((len(boxes), 1))])
+    gt_map, _ = quiet(lambda: imdb.evaluate_detections(
+        gt_boxes, os.path.join(tmp, "gt")))
+    print(f"  detections.pkl {len(all_boxes)} x {len(all_boxes[0])}, "
+          f"float32 [N, 5]: {shape_ok}, {n_dets} detections; mAP {mean_ap:.6f}"
+          f"; ground truth as detections: mAP {gt_map:.6f}")
+    if not shape_ok or not 0.0 <= mean_ap <= 1.0 or gt_map != 1.0:
+        raise AssertionError("eval: detections.pkl, mAP or ground truth mAP")
+
+    # the timed run: the default detect_fn, decode to mAP
+    timers = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    timed_map, _ = quiet(lambda: E.test_net(
+        model, spec, imdb, "timed", output_dir=os.path.join(tmp, "timed"),
+        timers=timers))
+    seconds = time.perf_counter() - t
+    again = equal_all_boxes(load_pickle(os.path.join(
+        tmp, "timed", "detections.pkl")), all_boxes)
+    n = imdb.num_images
+    print(f"time eval: {seconds:.3f} s for {n} images = {n / seconds:.2f} "
+          f"images/s end to end (decode to mAP; res101 f32, TF32 off, "
+          f"B={BATCH}); per batch: im_detect "
+          f"{timers['im_detect'].average_time * 1e3:.3f} ms, misc "
+          f"{timers['misc'].average_time * 1e3:.3f} ms over "
+          f"{timers['im_detect'].calls} batches [{card}]")
+    print(f"  timed run: mAP {timed_map:.6f}, detections equal to the first "
+          f"run's {again}")
+    if not again or timed_map != mean_ap:
+        raise AssertionError("eval: a second run gave other detections")
+    paths = [imdb.image_path_at(i) for i in groups[0][:BATCH]]
+    decode = host_ms(lambda: [read_image_bgr(p) for p in paths])
+    prep = host_ms(lambda: E._prep_batch(ims, buckets[0], dev))
+    step = timed(lambda: detect(*card_in))
+    print(f"time eval split of a batch: decode {decode:.3f} ms (in the "
+          f"worker threads), prep on the card {prep:.3f} ms (host clock to "
+          f"a synchronize), detect step {step:.3f} ms (CUDA events); "
+          f"im_detect {timers['im_detect'].average_time * 1e3:.3f} ms "
+          f"[{card}]")
+    rows = {}
+    for name in kernel_pairs():
+        args, kwargs = next((a, k) for nm, a, k in calls if nm == name)
+        rows[name] = kernel_row(card, "eval f32", name, args, kwargs,
+                                launches[name])
+    return rows, model, all_boxes
+
+
+def eval_cli(root, tmp, weights, settings, all_boxes, nms_thresh):
+    """The CLIs on the saved weights, in subprocesses: test_net's
+    detections.pkl equal to the in-process one, and reval --nms scoring
+    what the host re-NMS of those detections scores."""
+    from tf_faster_rcnn_torch.datasets.factory import get_imdb
+    from tf_faster_rcnn_torch.engine.test_engine import apply_nms
+    env = dict(os.environ, PYTHONPATH=root)
+
+    def run(*args):
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *args], cwd=root,
+                              env=env, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"{args[0]} exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+        return proc.stdout.splitlines(), time.perf_counter() - t
+
+    lines, seconds = run(
+        "tf_faster_rcnn_torch.tools.test_net", "--cfg", EVAL_CFG_FILE,
+        "--net", "res101", "--imdb", "voc_2007_test", "--model", weights,
+        "--set", *settings)
+    cli_dir = os.path.join(tmp, "output", "res101", "voc_2007_test",
+                           EVAL_WEIGHTS)
+    same = equal_all_boxes(load_pickle(os.path.join(cli_dir,
+                                                    "detections.pkl")),
+                           all_boxes)
+    print(f"eval CLI: tools.test_net in {seconds:.1f} s (process start and "
+          f"build included): {[ln for ln in lines if 'mAP' in ln][-1]}; "
+          f"detections.pkl equal to the in-process run's {same}")
+    lines, seconds = run("tf_faster_rcnn_torch.tools.reval", cli_dir,
+                         "--imdb", "voc_2007_test", "--nms", "--set",
+                         "DATA_DIR", tmp)
+    got = [ln for ln in lines if ln.startswith("[voc] mAP")][-1]
+    want, _ = quiet(lambda: get_imdb("voc_2007_test").evaluate_detections(
+        apply_nms(all_boxes, nms_thresh), os.path.join(tmp, "nms")))
+    print(f"eval CLI: tools.reval --nms in {seconds:.1f} s: {got}; the host "
+          f"re-NMS in process: {want:.4f}")
+    if not same or got != f"[voc] mAP = {want:.4f}":
+        raise AssertionError("eval CLI: detections.pkl or reval --nms mAP")
+
 
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1037,6 +1347,7 @@ def main():
     paths["detect top"] = phase_detect_path(
         card, dev, "detect top", replace(spec_main, test_mode="top"), errors,
         batch=TOP_BATCH)
+    paths["eval f32"] = phase_eval(card, dev, errors)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,

@@ -4,19 +4,23 @@ A copy of the part of ``tf_faster_rcnn_tpu/config.py`` that the port reads,
 so that the port imports nothing of the JAX package: the same keys, the same
 defaults (``tests/test_torch_resnet.py`` holds them equal key for key) and
 the same merge rules, so the reference's ``experiments/cfgs/*.yml`` files
-and ``KEY.SUBKEY value`` overrides load identically. The model never reads
+and ``KEY.SUBKEY value`` overrides load identically; and the same output
+directory and canvas rules (``get_output_dir``, ``canvas_hw``,
+``canvas_buckets``, ``bucket_index``). The model never reads
 cfg while it runs: ``models/network.py::spec_from_cfg`` snapshots it into a
 ``ModelSpec``.
 """
 
 from __future__ import annotations
 
+import os
 import os.path as osp
 from ast import literal_eval
 
 import numpy as np
 
-__all__ = ["AttrDict", "cfg", "cfg_from_file", "cfg_from_list", "reset_cfg"]
+__all__ = ["AttrDict", "bucket_index", "canvas_buckets", "canvas_hw", "cfg",
+           "cfg_from_file", "cfg_from_list", "get_output_dir", "reset_cfg"]
 
 
 class AttrDict(dict):
@@ -217,3 +221,53 @@ def cfg_from_list(cfg_list):
             'type {} does not match original type {}'.format(
                 type(value), type(d[subkey])))
         d[subkey] = value
+
+
+def get_output_dir(imdb, weights_filename):
+    """The directory of an evaluation's artifacts, ROOT_DIR/output/EXP_DIR/
+    <imdb name>/<weights name or 'default'>, created on demand."""
+    outdir = osp.abspath(osp.join(cfg.ROOT_DIR, 'output', cfg.EXP_DIR,
+                                  imdb.name))
+    if weights_filename is None:
+        weights_filename = 'default'
+    outdir = osp.join(outdir, weights_filename)
+    os.makedirs(outdir, exist_ok=True)
+    return outdir
+
+
+def canvas_hw(phase_cfg) -> tuple:
+    """The square (H, W) canvas of a phase: TPU.CANVAS_SIZE when set, else
+    MAX_SIZE rounded up to a multiple of 32 (every backbone stage then has
+    integral sizes, and the stride-16 feature map is exactly H/16 x W/16)."""
+    h, w = cfg.TPU.CANVAS_SIZE
+    if h and w:
+        return int(h), int(w)
+    m = int(np.ceil(phase_cfg.MAX_SIZE / 32.0) * 32)
+    return m, m
+
+
+def canvas_buckets(phase_cfg) -> tuple:
+    """The canvases of a phase, landscape first: ((ceil32(max(SCALES)),
+    ceil32(MAX_SIZE)), its transpose). After the shortest-side resize an
+    image's short side is at most max(SCALES) and its long side at most
+    MAX_SIZE, so one of the two fits it (VOC: 608x1024 and 1024x608). One
+    canvas when TPU.CANVAS_SIZE pins it, TPU.BUCKETING is off, or the two
+    would coincide (SCALES >= MAX_SIZE)."""
+    h, w = cfg.TPU.CANVAS_SIZE
+    if h and w:
+        return ((int(h), int(w)),)
+    if not cfg.TPU.BUCKETING:
+        return (canvas_hw(phase_cfg),)
+    s = int(np.ceil(max(phase_cfg.SCALES) / 32.0) * 32)
+    m = int(np.ceil(phase_cfg.MAX_SIZE / 32.0) * 32)
+    if s >= m:
+        return ((m, m),)
+    return ((s, m), (m, s))
+
+
+def bucket_index(im_h, im_w, buckets) -> int:
+    """The bucket of an image of extent (im_h, im_w), original or resized
+    (a uniform resize keeps the orientation): landscape (w >= h) is 0."""
+    if len(buckets) == 1:
+        return 0
+    return 0 if im_w >= im_h else 1

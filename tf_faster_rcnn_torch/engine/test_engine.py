@@ -1,35 +1,244 @@
-"""The detect step of the evaluation engine.
+"""Evaluation engine: batched detection over an imdb, detections.pkl, the
+dataset's evaluation, and the host re-NMS of reval.
 
-Port of ``make_detect_fn`` from ``tf_faster_rcnn_tpu/engine/test_engine.py``.
-``im_detect`` and ``test_net`` are not ported yet: they read images through
-``data/blob.py``, which needs cv2 (ROADMAP.md, Queue A).
+Port of ``tf_faster_rcnn_tpu/engine/test_engine.py`` (``make_detect_fn``,
+``im_detect``, ``test_net`` on one device, ``apply_nms``). The flow is the
+reference's (lib/model/test.py): prepare each image at TEST.SCALES[0] capped
+by TEST.MAX_SIZE, detect, per-class NMS at TEST.NMS, cap at max_per_image,
+write detections.pkl, run imdb.evaluate_detections. As in the JAX package,
+images run in fixed-shape batches grouped by orientation bucket, the last
+batch filled by repeating its last image, and the postprocess runs on the
+device.
+
+The work splits three ways. Worker threads only decode image files into
+uint8 arrays, in a bounded window of batches consumed in schedule order.
+The main thread uploads each image and builds the batch's canvases on the
+model's device (``data/blob.py``: mean subtraction, resize, canvas write),
+launches the detect step, and copies the detections back: one host sync
+per batch. The host then files them into ``all_boxes``.
 """
 
 from __future__ import annotations
 
+import os
+import pickle
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
+
+import numpy as np
 import torch
 
+from tf_faster_rcnn_torch.config import (bucket_index, canvas_buckets, cfg,
+                                         get_output_dir)
+from tf_faster_rcnn_torch.data.blob import (batch_image_shape, image_size,
+                                            place_on_canvas,
+                                            prep_im_for_blob, read_image_bgr,
+                                            upload)
 from tf_faster_rcnn_torch.engine.detect import postprocess_detections
+from tf_faster_rcnn_torch.utils.native import nms_cpu
+from tf_faster_rcnn_torch.utils.timer import Timer
 
-__all__ = ["make_detect_fn"]
+__all__ = ["make_detect_fn", "im_detect", "test_net", "apply_nms"]
 
 
-def make_detect_fn(model, spec):
+def make_detect_fn(model, spec, max_per_image: Optional[int] = None,
+                   score_thresh: float = 0.0):
     """(image, im_info, orig_hw) -> (detections, valid), under
     torch.inference_mode. The postprocess settings come from spec
-    (spec_from_cfg snapshots TEST.NMS, TEST.BBOX_REG and TPU.MAX_PER_IMAGE).
+    (spec_from_cfg snapshots TEST.NMS, TEST.BBOX_REG and TPU.MAX_PER_IMAGE);
+    max_per_image, when given, replaces the spec's.
 
     image [B, H, W, 3], im_info [B, 3] and orig_hw [B, 2] are tensors on the
     model's device. detections: [B, max_per_image, 6] as (cls, score, x1,
     y1, x2, y2) in original image coordinates; valid: [B, max_per_image].
     """
+    mpi = int(max_per_image or spec.max_per_image)
+
     @torch.inference_mode()
     def detect(image, im_info, orig_hw):
         out = model(image, im_info)
         return postprocess_detections(
             out["rois"], out["roi_valid"], out["cls_prob"], out["bbox_pred"],
             im_info, orig_hw, num_classes=spec.num_classes,
-            max_per_image=spec.max_per_image, nms_thresh=spec.nms_thresh,
-            bbox_reg=spec.bbox_reg)
+            max_per_image=mpi, nms_thresh=spec.nms_thresh,
+            score_thresh=score_thresh, bbox_reg=spec.bbox_reg)
 
     return detect
+
+
+def _pixel_means(device) -> torch.Tensor:
+    return upload(np.asarray(cfg.PIXEL_MEANS, np.float32).reshape(3), device)
+
+
+def _prep_batch(ims, canvas, device, pixel_means=None):
+    """The canvases of a batch of decoded uint8 BGR images, built on
+    device: (images [B, H, W, 3] float32, im_info [B, 3], orig_hw [B, 2]),
+    all on device. Scales and extents come from the shapes, on the host."""
+    b = len(ims)
+    if pixel_means is None:
+        pixel_means = _pixel_means(device)
+    images = torch.zeros(batch_image_shape(b, canvas), dtype=torch.float32,
+                         device=device)
+    im_info = np.zeros((b, 3), np.float32)
+    orig_hw = np.zeros((b, 2), np.float32)
+    for i, im in enumerate(ims):
+        orig_hw[i] = (im.shape[0], im.shape[1])
+        prepped, scale = prep_im_for_blob(
+            upload(im, device), pixel_means, cfg.TEST.SCALES[0],
+            cfg.TEST.MAX_SIZE)
+        h, w = place_on_canvas(images[i], prepped)
+        im_info[i] = (h, w, scale)
+    return images, upload(im_info, device), upload(orig_hw, device)
+
+
+def _fetch(det, dv):
+    """Both outputs of a detect step on the host, in one copy."""
+    out = torch.cat([det, dv[..., None].to(det.dtype)], dim=-1).cpu().numpy()
+    return out[..., :6], out[..., 6] > 0
+
+
+def im_detect(detect_fn, im, device, canvas=None):
+    """Single-image detection (demo-style) of a uint8 BGR array on device.
+    Returns the valid rows of the detection slab, [N, 6] as (cls, score,
+    x1, y1, x2, y2)."""
+    if canvas is None:
+        buckets = canvas_buckets(cfg.TEST)
+        canvas = buckets[bucket_index(im.shape[0], im.shape[1], buckets)]
+    det, dv = _fetch(*detect_fn(*_prep_batch([im], canvas, device)))
+    return det[0][dv[0]]
+
+
+def _slab_to_all_boxes(det, dv, num_classes):
+    """Fixed detection slab -> the reference all_boxes row (per-class [N,5]
+    arrays of (x1,y1,x2,y2,score))."""
+    per_class = [[] for _ in range(num_classes)]
+    for row, ok in zip(det, dv):
+        if not ok:
+            continue
+        c = int(row[0])
+        per_class[c].append([row[2], row[3], row[4], row[5], row[1]])
+    return [np.array(v, np.float32).reshape(-1, 5) for v in per_class]
+
+
+def test_net(model, spec, imdb, weights_filename, max_per_image: int = 100,
+             thresh: float = 0.0, batch_size: Optional[int] = None,
+             output_dir: Optional[str] = None, detect_fn=None,
+             timers: Optional[dict] = None):
+    """Evaluate a model on an imdb on the model's device; writes
+    detections.pkl, runs the dataset's evaluator and returns its result
+    (mAP for VOC, AP for COCO).
+
+    batch_size defaults to TPU.IMS_PER_DEVICE. detect_fn defaults to
+    make_detect_fn(model, spec, max_per_image, thresh). timers, when given,
+    is filled with the 'im_detect' and 'misc' Timers (per batch).
+    """
+    np.random.seed(cfg.RNG_SEED)
+    device = next(model.parameters()).device
+    num_images = imdb.num_images
+    num_classes = imdb.num_classes
+    all_boxes = [[[] for _ in range(num_images)]
+                 for _ in range(num_classes)]
+    output_dir = output_dir or get_output_dir(imdb, weights_filename)
+    os.makedirs(output_dir, exist_ok=True)
+    buckets = canvas_buckets(cfg.TEST)
+    b = batch_size or max(1, int(cfg.TPU.IMS_PER_DEVICE))
+    detect_fn = detect_fn or make_detect_fn(model, spec, max_per_image,
+                                            thresh)
+    _t = {'im_detect': Timer(), 'misc': Timer()}
+    if timers is not None:
+        timers.update(_t)
+
+    # one canvas per orientation bucket, every batch on the tight canvas of
+    # its orientation; the header is enough, since a uniform resize keeps
+    # the orientation
+    if len(buckets) > 1:
+        groups = [[] for _ in buckets]
+        for i in range(num_images):
+            ih, iw = image_size(imdb.image_path_at(i))
+            groups[bucket_index(ih, iw, buckets)].append(i)
+    else:
+        groups = [list(range(num_images))]
+    schedule = [(k, grp[s:s + b])
+                for k, grp in enumerate(groups)
+                for s in range(0, len(grp), b)]
+
+    # workers decode a bounded window of batches ahead, consumed strictly in
+    # schedule order, so one slow decode cannot stall the device behind an
+    # idle pipeline; all device work stays on this thread
+    n_workers = max(1, int(cfg.TPU.EVAL_PREFETCH_THREADS))
+    window = n_workers + 2
+    pixel_means = _pixel_means(device)
+
+    def _decode(item):
+        k, idx = item
+        # fixed batch shape: repeat the last image to fill the tail
+        paths = [imdb.image_path_at(i) for i in idx]
+        paths += paths[-1:] * (b - len(idx))
+        return k, idx, [read_image_bgr(p) for p in paths]
+
+    pool = ThreadPoolExecutor(max_workers=n_workers,
+                              thread_name_prefix="decode")
+    try:
+        pending = [pool.submit(_decode, item) for item in schedule[:window]]
+        next_submit = window
+        done = 0
+        for _ in schedule:
+            _t['im_detect'].tic()
+            k, idx, ims = pending.pop(0).result()
+            if next_submit < len(schedule):
+                pending.append(pool.submit(_decode, schedule[next_submit]))
+                next_submit += 1
+            images, im_info, orig_hw = _prep_batch(ims, buckets[k], device,
+                                                   pixel_means)
+            det, dv = _fetch(*detect_fn(images, im_info, orig_hw))
+            _t['im_detect'].toc()
+
+            _t['misc'].tic()
+            for j, i in enumerate(idx):
+                boxes = _slab_to_all_boxes(det[j], dv[j], num_classes)
+                for c in range(1, num_classes):
+                    all_boxes[c][i] = boxes[c]
+            _t['misc'].toc()
+            # reference cadence: one line per image (test.py:158-160); the
+            # times are per batch
+            for _ in idx:
+                done += 1
+                print('im_detect: {:d}/{:d} {:.3f}s {:.3f}s'.format(
+                    done, num_images,
+                    _t['im_detect'].average_time, _t['misc'].average_time))
+    finally:
+        # cancel queued decodes on every exit path
+        pool.shutdown(wait=False, cancel_futures=True)
+
+    det_file = os.path.join(output_dir, 'detections.pkl')
+    with open(det_file, 'wb') as f:
+        pickle.dump(all_boxes, f, pickle.HIGHEST_PROTOCOL)
+    print('Evaluating detections')
+    return imdb.evaluate_detections(all_boxes, output_dir)
+
+
+def apply_nms(all_boxes, thresh):
+    """Host-side per-class NMS over pickled detections (the reval path,
+    reference test.py:109-136), through the native C++ op with the
+    reference's gpu_nms semantics (+1 IoU, suppress at >)."""
+    num_classes = len(all_boxes)
+    num_images = len(all_boxes[0])
+    nms_boxes = [[[] for _ in range(num_images)]
+                 for _ in range(num_classes)]
+    for cls_ind in range(num_classes):
+        for im_ind in range(num_images):
+            dets = all_boxes[cls_ind][im_ind]
+            if len(dets) == 0:
+                continue
+            dets = np.asarray(dets, np.float32)
+            x1, y1 = dets[:, 0], dets[:, 1]
+            x2, y2 = dets[:, 2], dets[:, 3]
+            inds = np.where((x2 > x1) & (y2 > y1))[0]
+            dets = dets[inds, :]
+            if dets.size == 0:
+                continue
+            keep = nms_cpu(dets, thresh, plus_one=True, suppress_eq=False)
+            if len(keep) == 0:
+                continue
+            nms_boxes[cls_ind][im_ind] = dets[keep, :].copy()
+    return nms_boxes

@@ -1,0 +1,86 @@
+#!/usr/bin/env python3
+"""Test a Faster R-CNN network on an image database, with the port.
+
+    python -m tf_faster_rcnn_torch.tools.test_net \\
+        --cfg experiments/cfgs/res101.yml --net res101 --imdb voc_2007_test \\
+        --model WEIGHTS [--device cuda] [--set KEY VALUE ...]
+
+The flags of ``tools/test_net.py`` (--cfg --model --imdb --comp --num_dets
+--tag --net --set), run on one device: ``--device`` (default ``cuda``; the
+tests pass ``cpu``). --model is the port's ``save_params`` file (``.pt``) or
+a ``.msgpack`` that the JAX package wrote (its ``save_params`` export or a
+training snapshot); without it the weights are drawn from RNG_SEED
+(``models/init.py``), as the reference tests with random weights. TF32 is
+off: a float32 compute dtype runs float32 convolutions.
+"""
+
+import argparse
+import pprint
+import sys
+
+import torch
+
+from tf_faster_rcnn_torch.config import cfg, cfg_from_file, cfg_from_list
+from tf_faster_rcnn_torch.datasets.factory import get_imdb
+from tf_faster_rcnn_torch.engine.test_engine import test_net
+from tf_faster_rcnn_torch.models.init import init_model
+from tf_faster_rcnn_torch.models.network import FasterRCNN, spec_from_cfg
+from tf_faster_rcnn_torch.utils.checkpoint import load_params
+
+NETS = ('vgg16', 'res50', 'res101', 'res152', 'mobile')
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description='Test a Faster R-CNN network')
+    parser.add_argument('--cfg', dest='cfg_file', default=None)
+    parser.add_argument('--model', dest='model', default=None,
+                        help='weights to test: the port\'s .pt or a JAX '
+                             '.msgpack (params or training snapshot)')
+    parser.add_argument('--imdb', dest='imdb_name', default='voc_2007_test')
+    parser.add_argument('--comp', dest='comp_mode', action='store_true',
+                        help='competition mode')
+    parser.add_argument('--num_dets', dest='max_per_image', default=100,
+                        type=int, help='max number of detections per image')
+    parser.add_argument('--tag', dest='tag', default='')
+    parser.add_argument('--net', dest='net', default='res50', choices=NETS)
+    parser.add_argument('--device', dest='device', default='cuda',
+                        help='torch device to run on (default cuda)')
+    parser.add_argument('--set', dest='set_cfgs', default=None,
+                        nargs=argparse.REMAINDER)
+    if argv is None and len(sys.argv) == 1:
+        parser.print_help()
+        sys.exit(1)
+    return parser.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    print('Called with args:')
+    print(args)
+    if args.cfg_file is not None:
+        cfg_from_file(args.cfg_file)
+    if args.set_cfgs is not None:
+        cfg_from_list(args.set_cfgs)
+    print('Using config:')
+    pprint.pprint(cfg)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    imdb = get_imdb(args.imdb_name)
+    imdb.competition_mode(args.comp_mode)
+    spec = spec_from_cfg(args.net, imdb.num_classes, 'TEST')
+    model = FasterRCNN(spec, device=args.device).eval()
+    if args.model is None:
+        print('No model given, testing with random initialization '
+              '(reference behavior, test_net.py:116-118)')
+        init_model(model, torch.Generator().manual_seed(cfg.RNG_SEED))
+    else:
+        model.load_state_dict(load_params(args.model), strict=True)
+
+    filename = (args.model or 'random').split('/')[-1] + args.tag
+    return test_net(model, spec, imdb, filename,
+                    max_per_image=args.max_per_image)
+
+
+if __name__ == '__main__':
+    main()
