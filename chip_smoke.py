@@ -72,7 +72,33 @@ Phases, in order; any failure raises and the exit code is nonzero:
    im_detect and misc per batch, and the split of a batch (decode, prep on
    the card, detect step). Then the CLIs in subprocesses: tools.test_net on
    the weights saved by save_params gives the same detections.pkl, and
-   tools.reval --nms the mAP of the host re-NMS of it.
+   tools.reval --nms the mAP of the host re-NMS of it;
+12. train loop: a VOCdevkit2007 trainval split of 32 images at VOC's sizes
+   (24 landscape, 8 portrait, with their flipped entries; TRAIN.
+   ASPECT_GROUPING on, so batches run on the landscape and the union
+   canvases), phase 11's test split as the imdbval, and phase 4's seeded
+   weights written as a res101 ImageNet slim var dict (.npz, no heads),
+   laid out here without the port's weight bridges. train_net at
+   experiments/cfgs/res101.yml (float32), B = 8, --weight that dict, as a
+   user runs it (default algorithms, the prefetcher on), 11 steps,
+   snapshots at steps 4, 8 and 11 with SNAPSHOT_KEPT 2, the eval at step
+   8: every imported backbone tensor equal to phase 4's; K1 once a step at
+   [8, 12000] -> 2000 (and once in the val summary), K2 only in the eval,
+   each equal to its plain version on the loop's inputs; finite losses;
+   the stem and block1 bitwise equal to the import after 11 steps, block2
+   on moved; the snapshots of steps 8 and 11 kept, metrics.jsonl and both
+   event dirs written, the mAP in [0, 1], the best params saved. Then the
+   deterministic pair (torch's deterministic algorithms, TPU.PREFETCH 0, no
+   eval): an unbroken run of 8 steps, and a second train_net from a copy
+   of its step-4 snapshot pair to step 8: parameters and momentum within
+   RESUME_TOL of the unbroken run's, the same step, generator and data
+   cursors. Then tools.trainval_net in a subprocess (--iters 16, the
+   prefetcher on, the caller's environment) exits 0 with its snapshot and
+   event files. Times: the loop's ms per step (steps 3-8, host clock to a
+   synchronize) beside the same step bare, in the user's run and in the
+   deterministic one, and phase 6's; the snapshot's write, the eval's
+   images/s, the device's idle share over steps 9-11 of the user's run
+   (torch.profiler), and the data layer's decode and card prep per batch.
 
 Each phase from 7 on prints its wall time. The kernel line gives, beside
 each kernel's main-path fields (phase 4), its launches, graph-replay time,
@@ -95,6 +121,9 @@ from dataclasses import replace
 
 import numpy as np
 
+# the environment the caller gave, for the CLIs' subprocesses: main() adds
+# CUBLAS_WORKSPACE_CONFIG to its own for phase 12's deterministic pair
+CALLER_ENV = dict(os.environ)
 BATCH = 8
 CANVAS = (608, 1024)      # config.canvas_buckets(cfg.TEST)[0] at SCALES 600,
                           # MAX_SIZE 1000: the engine's landscape canvas
@@ -135,6 +164,30 @@ EVAL_CFG_FILE = "experiments/cfgs/res101.yml"
 EVAL_SET = ["TPU.IMS_PER_DEVICE", str(BATCH)]
 EVAL_WEIGHTS = "res101_seed0.pt"
 PREP_TOL = 0.02
+# phase 12: the train loop at EVAL_CFG_FILE, B = 8, on a trainval split at
+# VOC's sizes (landscape, portrait; x2 with the flipped entries) numbered
+# apart from the test split, which is the loop's imdbval. The run a user
+# makes (default algorithms, the prefetcher on) takes LOOP_STEPS: snapshots
+# at steps 4, 8 and 11 (two kept), the eval at step 8, steps 3-8 timed and
+# PROFILE_STEPS traced; the deterministic pair takes LOOP_ITERS images, 8
+# steps, and resumes from step 4
+LOOP_COUNTS = (24, 8)
+LOOP_FIRST = 1000
+LOOP_ITERS = 64
+LOOP_STEPS = 11
+PROFILE_STEPS = (9, 11)
+LOOP_SET = ["TPU.IMS_PER_DEVICE", str(BATCH), "TRAIN.SNAPSHOT_ITERS", "32",
+            "TRAIN.SNAPSHOT_KEPT", "2", "TPU.EVAL_ITERS", "64",
+            "TRAIN.ASPECT_GROUPING", "True", "TRAIN.DISPLAY", "4"]
+LOOP_PREFIX = "res101_faster_rcnn"
+# the resumed run against the unbroken one, per tensor, relative to its
+# largest magnitude. Both run with torch's deterministic algorithms (the
+# crop's backward otherwise adds atomically, in an order that changes each
+# run; phase 6 holds one such step to 1e-6, but over four steps a last-bit
+# change flips a proposal or a sampled RoI); the tolerance leaves room for
+# an op that torch runs nondeterministically all the same (printed)
+RESUME_TOL = 1e-5
+CLI_ITERS = 16
 REPLACES = {
     "nms_keep_mask_batched": "tf_faster_rcnn_tpu/ops/pallas_nms.py:55",
     "batched_nms_keep": "tf_faster_rcnn_tpu/ops/pallas_nms.py:149",
@@ -898,7 +951,7 @@ def host_syncs(fn):
 def phase_train_times(card, state, step, batch, captured, label="train",
                       iters=ITERS, launches=1):
     """The train step's time and peak memory, and K1's on its inputs;
-    returns K1's row for the kernel line."""
+    returns (K1's row for the kernel line, the step's ms)."""
     import torch
     spec = state.model.spec
     torch.cuda.synchronize()
@@ -911,7 +964,7 @@ def phase_train_times(card, state, step, batch, captured, label="train",
           f"{peak / 2**30:.3f} GiB [{card}]")
     args, kwargs = captured
     return kernel_row(card, label, "nms_keep_mask_batched", args, kwargs,
-                      launches)
+                      launches), ms
 
 
 def build_detect_path(dev, spec, batch=BATCH):
@@ -1018,18 +1071,20 @@ def phase_train_variant(card, dev, label, errors, backbone="res101",
     spec, state, step, batch = build_train_path(dev, backbone, extra_cfg)
     launches, k1 = phase_train_path(card, spec, state, step, batch, errors,
                                     steps=steps, compare=compare)
-    row = phase_train_times(card, state, step, batch, k1, label, iters,
-                            launches["nms_keep_mask_batched"] // steps)
+    row, _ = phase_train_times(card, state, step, batch, k1, label, iters,
+                               launches["nms_keep_mask_batched"] // steps)
     del state, step, batch
     torch.cuda.empty_cache()
     print(f"phase {label}: {time.perf_counter() - t0:.1f} s")
     return row
 
-def write_eval_tree(root, seed=SEED):
-    """A VOCdevkit2007 test split under root: EVAL_LANDSCAPE landscape and
-    EVAL_PORTRAIT portrait images of dark noise, each with EVAL_OBJECTS
-    painted rectangles whose classes cycle through the 20 VOC classes, as
-    binary PPM under .jpg names, with XML annotations (1-based corners)."""
+def write_eval_tree(root, seed=SEED, split="test",
+                    counts=(EVAL_LANDSCAPE, EVAL_PORTRAIT), first=0):
+    """A VOCdevkit2007 split under root: counts[0] landscape and counts[1]
+    portrait images of dark noise, each with EVAL_OBJECTS painted
+    rectangles whose classes cycle through the 20 VOC classes, as binary
+    PPM under .jpg names numbered from first, with XML annotations
+    (1-based corners)."""
     from tf_faster_rcnn_torch.data.blob import write_ppm
     from tf_faster_rcnn_torch.datasets.pascal_voc import VOC_CLASSES
     rng = np.random.RandomState(seed)
@@ -1038,8 +1093,8 @@ def write_eval_tree(root, seed=SEED):
                                                           "Main")):
         os.makedirs(os.path.join(voc, sub), exist_ok=True)
     names, n_obj = [], 0
-    for i in range(EVAL_LANDSCAPE + EVAL_PORTRAIT):
-        h, w = EVAL_HW[int(i >= EVAL_LANDSCAPE)]
+    for i in range(sum(counts)):
+        h, w = EVAL_HW[int(i >= counts[0])]
         im = rng.randint(0, 60, (h, w, 3)).astype(np.uint8)
         xml = ""
         for _ in range(EVAL_OBJECTS):
@@ -1052,13 +1107,14 @@ def write_eval_tree(root, seed=SEED):
                     f"<xmax>{x1 + bw}</xmax><ymax>{y1 + bh}</ymax>"
                     "</bndbox></object>")
             n_obj += 1
-        name = f"{i:06d}"
+        name = f"{first + i:06d}"
         names.append(name)
         write_ppm(os.path.join(voc, "JPEGImages", name + ".jpg"), im)
         with open(os.path.join(voc, "Annotations", name + ".xml"), "w") as f:
             f.write(f"<annotation><size><width>{w}</width><height>{h}"
                     f"</height><depth>3</depth></size>{xml}</annotation>")
-    with open(os.path.join(voc, "ImageSets", "Main", "test.txt"), "w") as f:
+    with open(os.path.join(voc, "ImageSets", "Main", split + ".txt"),
+              "w") as f:
         f.write("\n".join(names) + "\n")
 
 
@@ -1270,7 +1326,7 @@ def eval_cli(root, tmp, weights, settings, all_boxes, nms_thresh):
     what the host re-NMS of those detections scores."""
     from tf_faster_rcnn_torch.datasets.factory import get_imdb
     from tf_faster_rcnn_torch.engine.test_engine import apply_nms
-    env = dict(os.environ, PYTHONPATH=root)
+    env = dict(CALLER_ENV, PYTHONPATH=root)
 
     def run(*args):
         t = time.perf_counter()
@@ -1306,12 +1362,484 @@ def eval_cli(root, tmp, weights, settings, all_boxes, nms_thresh):
         raise AssertionError("eval CLI: detections.pkl or reval --nms mAP")
 
 
+def slim_var_dict(model, scope="resnet_v1_101"):
+    """The backbone of a ResNet detector as an ImageNet slim var dict
+    (``resnet_v1_101/...`` names, no detection heads), in the layouts TF
+    writes: HWIO kernels, the stem's input channels in RGB order (the import
+    flips them to BGR), BatchNorm as gamma/beta/moving_mean/
+    moving_variance. Written from the state_dict here, apart from the
+    port's weight bridges (utils/weights.py), so that the import is held to
+    layouts of its own. Modeled on tests/test_slim_import.py::
+    _fill_var_dict_from_tree."""
+    import torch
+    bn_names = {"scale": "gamma", "bias": "beta", "mean": "moving_mean",
+                "var": "moving_variance"}
+    var = {}
+    for key, t in model.state_dict().items():
+        path = key.split(".")
+        if path[0] not in ("head", "tail"):
+            continue                         # the detection heads
+        x = t.detach().to("cpu", torch.float32).numpy()
+        path, leaf = path[1:-1], path[-1]
+        if path[0] in ("conv1", "conv1_bn"):   # head.conv1, head.conv1_bn
+            base = f"{scope}/conv1"
+        else:                      # {block}.{unit}.{conv}.conv|bn
+            block, unit, conv = path[:3]
+            base = f"{scope}/{block}/{unit}/bottleneck_v1/{conv}"
+        if leaf == "weight":
+            x = x.transpose(2, 3, 1, 0)                   # OIHW -> HWIO
+            if path == ["conv1"]:
+                x = x[:, :, ::-1, :]                      # BGR -> RGB
+            var[f"{base}/weights"] = np.ascontiguousarray(x)
+        else:
+            var[f"{base}/BatchNorm/{bn_names[leaf]}"] = x
+    return var
+
+
+@contextlib.contextmanager
+def loop_probe(record, profile_steps=None):
+    """Instrument the train loop from outside: record[...] gets the
+    backbone as loaded (before create_train_state casts or trains it),
+    each step's host end time after a synchronize, its canvas and its K1/K2
+    launches, the last (step, state, batch), and the wall time of each
+    snapshot, eval and summary with the step count when it ran. With
+    profile_steps (first, last), torch.profiler runs from the call of step
+    first to the end of step last."""
+    import torch
+    from tf_faster_rcnn_torch.engine import train_loop as L
+    from tf_faster_rcnn_torch.ops import nms_kernels as K
+    sw = L.SolverWrapper
+    saved = (L.create_train_state, L.make_train_step, sw.snapshot,
+             sw._eval_map, sw._summary)
+    ends = record.setdefault("ends", [])
+    done = record.setdefault("steps", [])
+
+    def create(spec, model, generator, batch_size=1):
+        record["loaded"] = {k: v.detach().clone()
+                            for k, v in model.state_dict().items()
+                            if k.startswith(("head.", "tail."))}
+        return saved[0](spec, model, generator, batch_size)
+
+    def make_step(model, spec, **kwargs):
+        step = saved[1](model, spec, **kwargs)
+
+        def probed(state, batch):
+            if "first" not in record:        # one host read, at the start
+                record["first"] = int(state.step) + 1
+            n = record["first"] + len(done)
+            if profile_steps and n == profile_steps[0]:
+                torch.cuda.synchronize()
+                record["profiler"] = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                record["profiler"].start()
+            before = K.launch_counts()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+            after = K.launch_counts()
+            done.append((n, tuple(batch["image"].shape[1:3]),
+                         {k: after[k] - before[k] for k in after}))
+            record["last"] = (step, state, batch)
+            if profile_steps and n == profile_steps[1]:
+                record["profiler"].stop()
+            return out
+        return probed
+
+    def timed(index, key):
+        def call(self, *args, **kwargs):
+            t = time.perf_counter()
+            out = saved[index](self, *args, **kwargs)
+            torch.cuda.synchronize()
+            record.setdefault(key, []).append(
+                (len(ends), time.perf_counter() - t, out))
+            return out
+        return call
+
+    L.create_train_state, L.make_train_step = create, make_step
+    sw.snapshot, sw._eval_map, sw._summary = (
+        timed(2, "snapshots"), timed(3, "evals"), timed(4, "summaries"))
+    try:
+        yield
+    finally:
+        (L.create_train_state, L.make_train_step, sw.snapshot, sw._eval_map,
+         sw._summary) = saved
+
+
+def device_idle(prof):
+    """(busy ms, window ms, idle share) of the card in a profiler window:
+    the union of its kernels' intervals against the span from the first
+    kernel's start to the last one's end."""
+    import torch
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA
+                   and e.duration_ns() > 0)
+    if not spans:
+        raise AssertionError("the profiler recorded no device time")
+    busy, end = 0, spans[0][0]
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    window = spans[-1][1] - spans[0][0]
+    return busy / 1e6, window / 1e6, 1.0 - busy / window
+
+
+def phase_train_loop(card, dev, errors, bare_step_ms):
+    """Phase 12 (docstring): train_net, a resume, the CLI; returns the
+    kernels' rows on the loop's path."""
+    import tempfile
+    import torch
+    from tf_faster_rcnn_torch.config import cfg, cfg_from_file, cfg_from_list
+    from tf_faster_rcnn_torch.config import reset_cfg
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as tmp:
+        write_eval_tree(tmp)
+        write_eval_tree(tmp, seed=SEED + 1, split="trainval",
+                        counts=LOOP_COUNTS, first=LOOP_FIRST)
+        weights = os.path.join(tmp, "res101_imagenet.npz")
+        reference = write_imagenet_npz(weights)
+        settings = LOOP_SET + ["DATA_DIR", tmp, "ROOT_DIR", tmp]
+        reset_cfg()
+        cfg_from_file(os.path.join(root, EVAL_CFG_FILE))
+        cfg_from_list(settings)
+        try:
+            rows = loop_in_process(card, dev, errors, tmp, weights,
+                                   reference, bare_step_ms)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            reset_cfg()
+        loop_cli(root, tmp, weights, settings)
+    print(f"phase train loop: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def write_imagenet_npz(path):
+    """Phase 4's seeded res101 weights (models/init.py at SEED), their
+    backbone written to path as a slim var dict .npz; returns the model's
+    state_dict, the reference the import is held to."""
+    import torch
+    from tf_faster_rcnn_torch.models.init import init_model
+    from tf_faster_rcnn_torch.models.network import FasterRCNN
+    model = FasterRCNN(build_spec(), device="cpu")
+    init_model(model, torch.Generator().manual_seed(SEED))
+    np.savez(path, **slim_var_dict(model))
+    return model.state_dict()
+
+
+def _loop_data(cfg):
+    from tf_faster_rcnn_torch.tools.trainval_net import load_training_roidbs
+    imdb, roidb = load_training_roidbs("voc_2007_trainval")
+    saved, cfg.TRAIN.USE_FLIPPED = cfg.TRAIN.USE_FLIPPED, False
+    try:
+        valimdb, valroidb = load_training_roidbs("voc_2007_test")
+    finally:
+        cfg.TRAIN.USE_FLIPPED = saved
+    return imdb, roidb, valimdb, valroidb
+
+
+def loop_in_process(card, dev, errors, tmp, weights, reference,
+                    bare_step_ms):
+    """The run a user makes (LOOP_STEPS steps under default algorithms with
+    the prefetcher on: checks and times), then the deterministic pair (an
+    unbroken run of 8 steps and a resume from its step-4 snapshot: equal
+    parameters and cursors) and the data layer's times. Returns the
+    kernels' rows."""
+    import shutil
+    import torch
+    from tf_faster_rcnn_torch.config import cfg
+    from tf_faster_rcnn_torch.data.loader import RoIDataLayer
+    from tf_faster_rcnn_torch.engine.train_loop import train_net
+    from tf_faster_rcnn_torch.ops import nms_kernels as K
+    from tf_faster_rcnn_torch.utils import checkpoint as ckpt
+    (imdb, roidb, valimdb, valroidb), _ = quiet(lambda: _loop_data(cfg))
+    nondeterministic = set()
+
+    def run(out, record, max_iters, profile_steps=None, calls=None):
+        with loop_probe(record, profile_steps), nms_route(log=calls), \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            state, lines = quiet(lambda: train_net(
+                "res101", imdb, roidb, valroidb, os.path.join(tmp, out),
+                os.path.join(tmp, out + "_tb"), pretrained_model=weights,
+                max_iters=max_iters, valimdb=valimdb, device=dev))
+        torch.cuda.synchronize()
+        nondeterministic.update(str(w.message).split(".")[0] for w in caught
+                                if "deterministic" in str(w.message))
+        return state, lines
+
+    def loop_ms(record, first, last):
+        """Host ms a step over steps first..last, the snapshots written
+        between them left out."""
+        ends = record["ends"]
+        snaps = sum(s for n, s, _ in record["snapshots"]
+                    if first - 1 <= n < last)
+        return (ends[last - 1] - ends[first - 2] - snaps) / (
+            last - first + 1) * 1e3
+
+    # the run a user makes: default algorithms, TPU.PREFETCH at its default
+    steps = LOOP_STEPS
+    rec, calls = {}, []
+    K.reset_launch_counts()
+    state, lines = run("unbroken", rec, steps * BATCH,
+                       profile_steps=PROFILE_STEPS, calls=calls)
+    launches = K.launch_counts()
+    out_dir = os.path.join(tmp, "unbroken")
+    tb_dir = out_dir + "_tb"
+    per_step = [(n, hw, c["nms_keep_mask_batched"], c["batched_nms_keep"])
+                for n, hw, c in rec["steps"]]
+    print(f"train loop: res101 float32 B={BATCH} at {EVAL_CFG_FILE}, "
+          f"{len(roidb)} trainval entries (flipped included), {steps} steps, "
+          f"default algorithms, TPU.PREFETCH {cfg.TPU.PREFETCH}; launches "
+          f"{launches}; per step (step, canvas, K1, K2): {per_step}"
+          f"; summaries at {[n for n, _, _ in rec['summaries']]}")
+    for line in lines:
+        if line.startswith(("Loaded pretrained", "iter:", "iter ",
+                            "Wrote snapshot", "Batched recipe")):
+            print("  " + line)
+
+    # the import: every backbone tensor equal to phase 4's
+    off = [k for k, v in rec["loaded"].items()
+           if not torch.equal(v.cpu(), reference[k])]
+    print(f"  --weight: {len(rec['loaded'])} backbone tensors, equal to "
+          f"phase 4's seeded weights: {not off}")
+    if off or len(rec["loaded"]) != sum(
+            k.startswith(("head.", "tail.")) for k in reference):
+        raise AssertionError(f"imported backbone differs: {off[:3]}")
+
+    # K1 once a step at the train shape (N = 12000, max_keep 2000 at the
+    # YAML's settings), K2 only in the eval
+    n_val = len(rec["summaries"])
+    pre, post = (int(cfg.TRAIN.RPN_PRE_NMS_TOP_N),
+                 int(cfg.TRAIN.RPN_POST_NMS_TOP_N))
+    train_k1 = [(a, k) for nm, a, k in calls if nm == "nms_keep_mask_batched"
+                and k.get("max_keep") == post]
+    eval_k1 = [(a, k) for nm, a, k in calls if nm == "nms_keep_mask_batched"
+               and k.get("max_keep") != post]
+    eval_k2 = [(a, k) for nm, a, k in calls if nm == "batched_nms_keep"]
+    shapes_ok = all(tuple(a[0].shape) == (BATCH, pre, 4) for a, _ in train_k1)
+    want = {"nms_keep_mask_batched": steps + n_val + len(eval_k1),
+            "batched_nms_keep": len(eval_k2)}
+    print(f"  K1 at the train shape [{BATCH}, {pre}] -> {post}: "
+          f"{len(train_k1)} calls ({steps} steps, {n_val} val summary), all "
+          f"at that shape {shapes_ok}; in the eval K1 {len(eval_k1)}, K2 "
+          f"{len(eval_k2)} calls")
+    if ([c[2:] for c in per_step] != [(1, 0)] * steps or not shapes_ok
+            or len(train_k1) != steps + n_val or not eval_k2
+            or len(eval_k1) != len(eval_k2) or launches != want):
+        raise AssertionError(f"loop launches {launches} (want {want}), per "
+                             f"step {per_step}")
+    for label, (args, kwargs) in (("step 1", train_k1[0]),
+                                  ("val summary", train_k1[1]),
+                                  (f"step {steps}", train_k1[-1])):
+        check_equal(errors, "nms_keep_mask_batched",
+                    K.nms_keep_mask_batched(*args, **kwargs),
+                    K.nms_keep_mask_plain(*args, **kwargs),
+                    f"train loop {label} {tuple(args[0].shape)} {kwargs}")
+    for name, (args, kwargs) in (("nms_keep_mask_batched", eval_k1[0]),
+                                 ("batched_nms_keep", eval_k2[0])):
+        kernel, plain = kernel_pairs()[name]
+        check_equal(errors, name, kernel(*args, **kwargs),
+                    plain(*args, **kwargs),
+                    f"train loop eval {tuple(args[0].shape)} {kwargs}")
+
+    # losses, the freeze, snapshots, summaries, the eval
+    rows = [json.loads(ln) for ln in open(os.path.join(tb_dir,
+                                                       "metrics.jsonl"))]
+    losses = [r for r in rows if r["prefix"] in ("train", "val")]
+    finite = all(np.isfinite(v) for r in losses for k, v in r.items()
+                 if k not in ("prefix",))
+    model = state.model
+    params = dict(model.named_parameters())
+    frozen = [n for n, p in params.items() if not p.requires_grad]
+    stem_block1 = [n for n in frozen if n.startswith(("head.conv1",
+                                                      "head.block1"))]
+    changed = [n for n in frozen if not torch.equal(params[n],
+                                                    rec["loaded"][n])]
+    later = [n for n, p in params.items() if p.requires_grad]
+    still = [n for n in later if n.startswith(("head.", "tail."))
+             and torch.equal(params[n], rec["loaded"][n])]
+    kept = sorted(f for f in os.listdir(out_dir)
+                  if "_iter_" in f and f.endswith(".pt"))
+    written = [n for n, _, _ in rec["snapshots"]]
+    maps = [r["val_mAP"] for r in rows if "val_mAP" in r]
+    events = [os.path.isdir(d) and any(f.startswith("events.out.tfevents.")
+                                       for f in os.listdir(d))
+              for d in (tb_dir, tb_dir + "_val")]
+    best = os.path.join(out_dir, f"{LOOP_PREFIX}_best.pt")
+    print(f"  losses finite in {len(losses)} summaries: {finite}; frozen "
+          f"{len(frozen)} tensors (stem and block1 {len(stem_block1)}) "
+          f"bitwise equal to the import: {not changed}; {len(later)} "
+          f"trainable moved: {not still}; snapshots written at {written}, "
+          f"kept {kept} (SNAPSHOT_KEPT {cfg.TRAIN.SNAPSHOT_KEPT}); event dirs "
+          f"{events}; mAP {maps} at step {[n for n, _, _ in rec['evals']]}; "
+          f"{os.path.basename(best)} {os.path.exists(best)}")
+    if (not finite or changed or still or not stem_block1
+            or written != [4, 8, steps]
+            or kept != [f"{LOOP_PREFIX}_iter_{n}.pt" for n in (steps, 8)]
+            or not all(events) or len(maps) != 1 or not 0 <= maps[0] <= 1
+            or not os.path.exists(best)):
+        raise AssertionError("train loop: losses, freeze, snapshots, events, "
+                             "mAP or best params")
+
+    # times of the user's run: steps 3-8 timed, PROFILE_STEPS traced
+    default_ms = loop_ms(rec, 3, 8)
+    canvases = sorted({hw for n, hw, _ in rec["steps"] if n > 2})
+    eval_s = rec["evals"][0][1]
+    busy, window, idle = device_idle(rec["profiler"])
+    step_fn, st, batch = rec["last"]
+    bare = host_ms(lambda: step_fn(st, batch), iters=3)
+    print(f"time train loop: {default_ms:.3f} ms per step = "
+          f"{BATCH * 1000.0 / default_ms:.2f} images/s (steps 3-8, host "
+          f"clock to a synchronize, the step-4 snapshot left out; default "
+          f"algorithms, TPU.PREFETCH {cfg.TPU.PREFETCH}, canvases "
+          f"{canvases}); the bare step on the loop's last batch "
+          f"{tuple(batch['image'].shape[1:3])}: {bare:.3f} ms, so the loop "
+          f"adds {default_ms - bare:.3f} ms a step; phase 6's bare step "
+          f"{bare_step_ms:.3f} ms (608x1024) [{card}]")
+    print(f"time train loop device: busy {busy:.3f} ms of a {window:.3f} ms "
+          f"window over steps {PROFILE_STEPS[0]}-{PROFILE_STEPS[1]}, idle "
+          f"share {idle:.4f} (default algorithms, the prefetcher on, "
+          f"torch.profiler on) [{card}]")
+    print(f"time train loop snapshot: "
+          + ", ".join(f"step {n}: {s * 1e3:.1f} ms" for n, s, _ in
+                      rec["snapshots"])
+          + f"; eval of {valimdb.num_images} images at step "
+          f"{rec['evals'][0][0]}: {eval_s:.3f} s = "
+          f"{valimdb.num_images / eval_s:.2f} images/s (the TEST model's "
+          f"build included), mAP {rec['evals'][0][2]:.6f} [{card}]")
+    rows_out = {"train loop": {"nms_keep_mask_batched": kernel_row(
+        card, "train loop", "nms_keep_mask_batched", *train_k1[-1],
+        steps + n_val)},
+        "train loop eval": {
+            name: kernel_row(card, "train loop eval", name, *inputs[0],
+                             len(inputs))
+            for name, inputs in (("nms_keep_mask_batched", eval_k1),
+                                 ("batched_nms_keep", eval_k2))}}
+    del state, model, params, rec, calls, train_k1, eval_k1, eval_k2
+    del step_fn, st, batch
+    torch.cuda.empty_cache()
+
+    # the deterministic pair: the crop's backward scatters with atomic adds,
+    # whose order changes each run, and with random weights a change in the
+    # last bit of a sum flips a proposal or a sampled RoI within a few steps
+    # (with deterministic cuDNN alone a resume diverged to 1.4e-2). The
+    # prefetcher's resume replays the batch in flight (its get_state
+    # contract), so the pair runs without it, and without the eval
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cfg.TPU.PREFETCH = 0
+    cfg.TPU.EVAL_ITERS = 0
+    pair = -(-LOOP_ITERS // BATCH)
+    rec = {}
+    state, _ = run("pair", rec, LOOP_ITERS)
+    pair_dir = os.path.join(tmp, "pair")
+    det_ms = loop_ms(rec, 3, pair)
+    final = {k: v.cpu() for k, v in state.state_dict()["params"].items()}
+    final_trace = {k: v.cpu() for k, v in state.trace.items()}
+    final_gen = state.generator.get_state()
+    del state, rec
+    torch.cuda.empty_cache()
+    resumed = os.path.join(tmp, "resumed")
+    os.makedirs(resumed)
+    for ext in ("pt", "pkl"):
+        shutil.copy(os.path.join(pair_dir, f"{LOOP_PREFIX}_iter_"
+                                           f"{pair // 2}.{ext}"), resumed)
+    rec = {}
+    state, lines = run("resumed", rec, LOOP_ITERS)
+    restored = [ln for ln in lines if ln.startswith("Restored from iter")]
+    err = max(float((state.model.state_dict()[k].cpu() - v).abs().max())
+              / max(float(v.abs().max()), 1e-30) for k, v in final.items())
+    trace_err = max(float((state.trace[k].cpu() - v).abs().max())
+                    / max(float(v.abs().max()), 1e-30)
+                    for k, v in final_trace.items())
+    metas = [ckpt.restore_meta(os.path.join(d, f"{LOOP_PREFIX}_iter_"
+                                               f"{pair}.pkl"))
+             for d in (pair_dir, resumed)]
+    a, b = (m["data_state"]["train"] for m in metas)
+    cursors = (int(a["cur"]) == int(b["cur"])
+               and np.array_equal(a["perm"], b["perm"])
+               and all(np.array_equal(x, y) for x, y in zip(a["rng_state"],
+                                                            b["rng_state"])))
+    same_gen = torch.equal(state.generator.get_state(), final_gen)
+    print(f"  deterministic pair (torch.use_deterministic_algorithms, "
+          f"TPU.PREFETCH 0, no eval): ops without a deterministic "
+          f"implementation on the loop's path: "
+          f"{sorted(nondeterministic) or 'none'}")
+    print(f"  resumed run: {restored}, steps "
+          f"{[n for n, _, _ in rec['steps']]}; parameters max rel "
+          f"{err:.3g}, momentum max rel {trace_err:.3g} "
+          f"(tol {RESUME_TOL:g}); step {int(state.step)}, count "
+          f"{int(state.count)}; generator equal {same_gen}; data cursors "
+          f"equal {cursors}")
+    if (restored != [f"Restored from iter {pair // 2}"] or err > RESUME_TOL
+            or trace_err > RESUME_TOL or int(state.step) != pair
+            or not same_gen or not cursors):
+        raise AssertionError("the resumed run differs from the unbroken one")
+    step_fn, st, batch = rec["last"]
+    det_bare = host_ms(lambda: step_fn(st, batch), iters=3)
+    torch.use_deterministic_algorithms(False)
+    print(f"time train loop deterministic: {det_ms:.3f} ms per step = "
+          f"{BATCH * 1000.0 / det_ms:.2f} images/s (the pair's unbroken run, "
+          f"steps 3-{pair}, TPU.PREFETCH 0); the bare step on the resumed "
+          f"run's last batch {tuple(batch['image'].shape[1:3])}: "
+          f"{det_bare:.3f} ms, so the loop adds {det_ms - det_bare:.3f} ms "
+          f"a step [{card}]")
+    del state, st, step_fn, batch, rec
+    torch.cuda.empty_cache()
+
+    layer = RoIDataLayer(roidb, batch_size=BATCH, device=dev)
+    decode = host_ms(layer.next_host_batch, iters=3)
+    host = layer.next_host_batch()
+    prep = host_ms(lambda: layer.to_device(host), iters=3)
+    print(f"time train data layer: decode {decode:.3f} ms a batch of "
+          f"{BATCH} (host), prep on the card {prep:.3f} ms (host clock to a "
+          f"synchronize), canvas {host.canvas} [{card}]")
+    return rows_out
+
+
+def loop_cli(root, tmp, weights, settings):
+    """tools.trainval_net in a subprocess: exit 0, a snapshot and both event
+    dirs."""
+    env = dict(CALLER_ENV, PYTHONPATH=root)
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tf_faster_rcnn_torch.tools.trainval_net",
+         "--net", "res101", "--cfg", EVAL_CFG_FILE, "--weight", weights,
+         "--imdb", "voc_2007_trainval", "--imdbval", "voc_2007_test",
+         "--iters", str(CLI_ITERS), "--set", *settings],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t
+    if proc.returncode:
+        raise AssertionError(f"trainval_net exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    sub = os.path.join("res101", "voc_2007_trainval", "default")
+    out_dir = os.path.join(tmp, "output", sub)
+    tb_dir = os.path.join(tmp, "tensorboard", sub)
+    steps = CLI_ITERS // BATCH
+    snap = os.path.join(out_dir, f"{LOOP_PREFIX}_iter_{steps}.pt")
+    events = [any(f.startswith("events.out.tfevents.")
+                  for f in os.listdir(d))
+              for d in (tb_dir, tb_dir + "_val")]
+    shown = [ln for ln in proc.stdout.splitlines() if ln.startswith("iter:")]
+    print(f"train loop CLI: tools.trainval_net --iters {CLI_ITERS} in "
+          f"{seconds:.1f} s (process start, weights and roidb included): "
+          f"{shown}; snapshot {os.path.exists(snap)}; event dirs {events}")
+    if not os.path.exists(snap) or not all(events):
+        raise AssertionError("trainval_net CLI: snapshot or event files")
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "tf_faster_rcnn_torch")):
         raise SystemExit("chip_smoke.py: tf_faster_rcnn_torch/ is not beside "
                          "this script; run it from a checkout of the repo")
     sys.path.insert(0, root)
+    # torch's deterministic algorithms (phase 12's resume pair) need a fixed
+    # cuBLAS workspace, whose size cuBLAS reads at its first use: set before
+    # any CUDA work, so that every phase runs with the same workspace
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     card = phase_device()
@@ -1325,8 +1853,9 @@ def main():
     del model, detect, inputs, captured
     spec, state, step, batch = build_train_path(dev)
     _, train_k1 = phase_train_path(card, spec, state, step, batch, errors)
-    paths = {"train f32": {"nms_keep_mask_batched": phase_train_times(
-        card, state, step, batch, train_k1)}}
+    train_row, train_ms = phase_train_times(card, state, step, batch,
+                                            train_k1)
+    paths = {"train f32": {"nms_keep_mask_batched": train_row}}
     del state, step, batch
     torch.cuda.empty_cache()
 
@@ -1348,6 +1877,7 @@ def main():
         card, dev, "detect top", replace(spec_main, test_mode="top"), errors,
         batch=TOP_BATCH)
     paths["eval f32"] = phase_eval(card, dev, errors)
+    paths.update(phase_train_loop(card, dev, errors, train_ms))
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,

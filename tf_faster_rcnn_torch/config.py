@@ -5,10 +5,10 @@ so that the port imports nothing of the JAX package: the same keys, the same
 defaults (``tests/test_torch_resnet.py`` holds them equal key for key) and
 the same merge rules, so the reference's ``experiments/cfgs/*.yml`` files
 and ``KEY.SUBKEY value`` overrides load identically; and the same output
-directory and canvas rules (``get_output_dir``, ``canvas_hw``,
-``canvas_buckets``, ``bucket_index``). The model never reads
-cfg while it runs: ``models/network.py::spec_from_cfg`` snapshots it into a
-``ModelSpec``.
+directory and canvas rules (``get_output_dir``, ``get_output_tb_dir``,
+``canvas_hw``, ``canvas_buckets``, ``bucket_index``, ``mixed_canvas``).
+The model never reads cfg while it runs: ``models/network.py::
+spec_from_cfg`` snapshots it into a ``ModelSpec``.
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ from ast import literal_eval
 import numpy as np
 
 __all__ = ["AttrDict", "bucket_index", "canvas_buckets", "canvas_hw", "cfg",
-           "cfg_from_file", "cfg_from_list", "get_output_dir", "reset_cfg"]
+           "cfg_from_file", "cfg_from_list", "get_output_dir",
+           "get_output_tb_dir", "mixed_canvas", "reset_cfg"]
 
 
 class AttrDict(dict):
@@ -223,16 +224,27 @@ def cfg_from_list(cfg_list):
         d[subkey] = value
 
 
-def get_output_dir(imdb, weights_filename):
-    """The directory of an evaluation's artifacts, ROOT_DIR/output/EXP_DIR/
-    <imdb name>/<weights name or 'default'>, created on demand."""
-    outdir = osp.abspath(osp.join(cfg.ROOT_DIR, 'output', cfg.EXP_DIR,
-                                  imdb.name))
+def _run_dir(kind, imdb, weights_filename):
+    outdir = osp.abspath(osp.join(cfg.ROOT_DIR, kind, cfg.EXP_DIR, imdb.name))
     if weights_filename is None:
         weights_filename = 'default'
     outdir = osp.join(outdir, weights_filename)
     os.makedirs(outdir, exist_ok=True)
     return outdir
+
+
+def get_output_dir(imdb, weights_filename):
+    """The directory of a run's artifacts (snapshots, detections),
+    ROOT_DIR/output/EXP_DIR/<imdb name>/<weights name or tag, or
+    'default'>, created on demand."""
+    return _run_dir('output', imdb, weights_filename)
+
+
+def get_output_tb_dir(imdb, weights_filename):
+    """The directory of a run's metrics and TensorBoard events,
+    ROOT_DIR/tensorboard/EXP_DIR/<imdb name>/<tag or 'default'>, created on
+    demand."""
+    return _run_dir('tensorboard', imdb, weights_filename)
 
 
 def canvas_hw(phase_cfg) -> tuple:
@@ -271,3 +283,9 @@ def bucket_index(im_h, im_w, buckets) -> int:
     if len(buckets) == 1:
         return 0
     return 0 if im_w >= im_h else 1
+
+
+def mixed_canvas(buckets) -> tuple:
+    """The smallest canvas that fits every bucket: a training batch that
+    mixes orientations runs on it (evaluation groups by bucket)."""
+    return (max(b[0] for b in buckets), max(b[1] for b in buckets))

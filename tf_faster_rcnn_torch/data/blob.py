@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 __all__ = ["read_image_bgr", "image_size", "im_scale", "scaled_hw",
-           "upload", "prep_im_for_blob", "place_on_canvas",
+           "upload", "prep_im_for_blob", "place_on_canvas", "prep_batch",
            "batch_image_shape", "write_ppm"]
 
 _PPM_MAGIC = b"P6"
@@ -201,6 +201,31 @@ def place_on_canvas(dest: torch.Tensor, im: torch.Tensor):
         raise ValueError(f"image {h}x{w} exceeds canvas {ch}x{cw}")
     dest[:h, :w] = im
     return h, w
+
+
+def prep_batch(ims, canvas, device, target_sizes, max_size, pixel_means,
+               flipped=None):
+    """The canvases of a batch of decoded uint8 BGR images, built on
+    device: (images [B, H, W, 3] float32, im_info [B, 3], orig_hw [B, 2]),
+    all on device. Image i is flipped left-right when flipped[i] (on the
+    device, after the upload), then prepared at target_sizes[i] capped by
+    max_size. pixel_means: the three BGR means, a tensor on device. Scales
+    and extents come from the shapes, on the host."""
+    b = len(ims)
+    images = torch.zeros(batch_image_shape(b, canvas), dtype=torch.float32,
+                         device=device)
+    im_info = np.zeros((b, 3), np.float32)
+    orig_hw = np.zeros((b, 2), np.float32)
+    for i, im in enumerate(ims):
+        orig_hw[i] = (im.shape[0], im.shape[1])
+        x = upload(im, device)
+        if flipped is not None and flipped[i]:
+            x = torch.flip(x, dims=[1])
+        prepped, scale = prep_im_for_blob(x, pixel_means, target_sizes[i],
+                                          max_size)
+        h, w = place_on_canvas(images[i], prepped)
+        im_info[i] = (h, w, scale)
+    return images, upload(im_info, device), upload(orig_hw, device)
 
 
 def batch_image_shape(b: int, canvas_hw: Tuple[int, int]):

@@ -30,10 +30,8 @@ import torch
 
 from tf_faster_rcnn_torch.config import (bucket_index, canvas_buckets, cfg,
                                          get_output_dir)
-from tf_faster_rcnn_torch.data.blob import (batch_image_shape, image_size,
-                                            place_on_canvas,
-                                            prep_im_for_blob, read_image_bgr,
-                                            upload)
+from tf_faster_rcnn_torch.data.blob import (image_size, prep_batch,
+                                            read_image_bgr, upload)
 from tf_faster_rcnn_torch.engine.detect import postprocess_detections
 from tf_faster_rcnn_torch.utils.native import nms_cpu
 from tf_faster_rcnn_torch.utils.timer import Timer
@@ -71,24 +69,12 @@ def _pixel_means(device) -> torch.Tensor:
 
 
 def _prep_batch(ims, canvas, device, pixel_means=None):
-    """The canvases of a batch of decoded uint8 BGR images, built on
-    device: (images [B, H, W, 3] float32, im_info [B, 3], orig_hw [B, 2]),
-    all on device. Scales and extents come from the shapes, on the host."""
-    b = len(ims)
+    """The canvases of a batch of decoded uint8 BGR images at the TEST
+    scale, built on device (``data/blob.py::prep_batch``)."""
     if pixel_means is None:
         pixel_means = _pixel_means(device)
-    images = torch.zeros(batch_image_shape(b, canvas), dtype=torch.float32,
-                         device=device)
-    im_info = np.zeros((b, 3), np.float32)
-    orig_hw = np.zeros((b, 2), np.float32)
-    for i, im in enumerate(ims):
-        orig_hw[i] = (im.shape[0], im.shape[1])
-        prepped, scale = prep_im_for_blob(
-            upload(im, device), pixel_means, cfg.TEST.SCALES[0],
-            cfg.TEST.MAX_SIZE)
-        h, w = place_on_canvas(images[i], prepped)
-        im_info[i] = (h, w, scale)
-    return images, upload(im_info, device), upload(orig_hw, device)
+    return prep_batch(ims, canvas, device, [cfg.TEST.SCALES[0]] * len(ims),
+                      cfg.TEST.MAX_SIZE, pixel_means)
 
 
 def _fetch(det, dv):

@@ -7,10 +7,13 @@
 
 The flags of ``tools/test_net.py`` (--cfg --model --imdb --comp --num_dets
 --tag --net --set), run on one device: ``--device`` (default ``cuda``; the
-tests pass ``cpu``). --model is the port's ``save_params`` file (``.pt``) or
-a ``.msgpack`` that the JAX package wrote (its ``save_params`` export or a
-training snapshot); without it the weights are drawn from RNG_SEED
-(``models/init.py``), as the reference tests with random weights. TF32 is
+tests pass ``cpu``). --model is the port's ``save_params`` file (``.pt``), a
+``.msgpack`` that the JAX package wrote (its ``save_params`` export or a
+training snapshot), or, as the JAX CLI takes them, a TF ``.ckpt`` bundle
+prefix or a slim var dict (``.npz``/``.pkl``) through the slim import
+(``utils/slim_import.py``; what it lacks keeps the RNG_SEED draw). Without
+it the weights are drawn from RNG_SEED (``models/init.py``), as the
+reference tests with random weights. TF32 is
 off: a float32 compute dtype runs float32 convolutions.
 """
 
@@ -26,6 +29,8 @@ from tf_faster_rcnn_torch.engine.test_engine import test_net
 from tf_faster_rcnn_torch.models.init import init_model
 from tf_faster_rcnn_torch.models.network import FasterRCNN, spec_from_cfg
 from tf_faster_rcnn_torch.utils.checkpoint import load_params
+from tf_faster_rcnn_torch.utils.slim_import import load_pretrained_into
+from tf_faster_rcnn_torch.utils.tf_bundle import is_tf_checkpoint
 
 NETS = ('vgg16', 'res50', 'res101', 'res152', 'mobile')
 
@@ -34,8 +39,9 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser(description='Test a Faster R-CNN network')
     parser.add_argument('--cfg', dest='cfg_file', default=None)
     parser.add_argument('--model', dest='model', default=None,
-                        help='weights to test: the port\'s .pt or a JAX '
-                             '.msgpack (params or training snapshot)')
+                        help='weights to test: the port\'s .pt, a JAX '
+                             '.msgpack (params or training snapshot), a TF '
+                             '.ckpt prefix or a slim var dict (.npz/.pkl)')
     parser.add_argument('--imdb', dest='imdb_name', default='voc_2007_test')
     parser.add_argument('--comp', dest='comp_mode', action='store_true',
                         help='competition mode')
@@ -74,6 +80,10 @@ def main(argv=None):
         print('No model given, testing with random initialization '
               '(reference behavior, test_net.py:116-118)')
         init_model(model, torch.Generator().manual_seed(cfg.RNG_SEED))
+    elif is_tf_checkpoint(args.model) or args.model.endswith(('.npz',
+                                                               '.pkl')):
+        init_model(model, torch.Generator().manual_seed(cfg.RNG_SEED))
+        load_pretrained_into(model, args.model, args.net)
     else:
         model.load_state_dict(load_params(args.model), strict=True)
 
