@@ -98,7 +98,27 @@ Phases, in order; any failure raises and the exit code is nonzero:
    synchronize) beside the same step bare, in the user's run and in the
    deterministic one, and phase 6's; the snapshot's write, the eval's
    images/s, the device's idle share over steps 9-11 of the user's run
-   (torch.profiler), and the data layer's decode and card prep per batch.
+   (torch.profiler), and the data layer's decode and card prep per batch;
+13. serve: phase 11's tree again; phase 4's seeded res101 weights saved
+   as a .pt, and tools.export_model --verify in a subprocess (the caller's
+   environment) exports the TEST program from that file (float32, TF32
+   off, B = 8) for both buckets, 608x1024 and 1024x608, and holds each
+   reloaded program to the live one at atol 0. A fresh process
+   (serve_child) loads the bundle, with no module of the port's models,
+   engine or config (nor JAX) in sys.modules, and runs it on phase 11's
+   first batch of each orientation with deterministic cuDNN: its outputs
+   equal the live make_detect_fn's bit for bit, K1 and K2 launch once per
+   call, and each equals its plain version on the inputs the program gave
+   it (recorded by a dispatch mode on the two operators, since the
+   exported graph calls the ops and not the wrappers that nms_route
+   patches). Then tools.serve in a subprocess over the 64 images: its JSON
+   equals the live step's rows on the same canvases at the same threshold;
+   and tools.demo --json over its 5 generated images exits 0 with its
+   figures and JSON. Times: the export CLI as a whole and per bucket (from
+   the files' times), the bundle's bytes, the load
+   in the fresh process, the exported step beside the live step (CUDA
+   events, mean of 10 after warm-up), serve images/s from the first decode
+   to the JSON, demo ms per image, and the kernels on the serve path.
 
 Each phase from 7 on prints its wall time. The kernel line gives, beside
 each kernel's main-path fields (phase 4), its launches, graph-replay time,
@@ -188,6 +208,11 @@ LOOP_PREFIX = "res101_faster_rcnn"
 # an op that torch runs nondeterministically all the same (printed)
 RESUME_TOL = 1e-5
 CLI_ITERS = 16
+# phase 13: what loading a bundle must not import (nor JAX, flax or the JAX
+# package)
+SERVE_FORBIDDEN = ("tf_faster_rcnn_torch.models",
+                   "tf_faster_rcnn_torch.engine",
+                   "tf_faster_rcnn_torch.config")
 REPLACES = {
     "nms_keep_mask_batched": "tf_faster_rcnn_tpu/ops/pallas_nms.py:55",
     "batched_nms_keep": "tf_faster_rcnn_tpu/ops/pallas_nms.py:149",
@@ -1002,6 +1027,7 @@ def phase_detect_path(card, dev, label, spec, errors, batch=BATCH,
     with reference (phase 4's float32 detections), the drift from them."""
     import torch
     from tf_faster_rcnn_torch.ops import nms_kernels as K
+    from tf_faster_rcnn_torch.ops.anchors import anchor_grid_on
     t0 = time.perf_counter()
     model, detect, inputs = build_detect_path(dev, spec, batch)
     record = {}
@@ -1055,6 +1081,21 @@ def phase_detect_path(card, dev, label, spec, errors, batch=BATCH,
           f"images/s ({spec.backbone} {spec.compute_dtype}, TF32 off, "
           f"B={batch}, mean of {ITERS}), peak memory {peak / 2**30:.3f} GiB "
           f"[{card}]")
+    # the anchor grid each forward builds, alone: its host enqueue beside
+    # the step's (a host-bound step pays it in full) and its device time
+    fh, fw = (c // spec.feat_stride for c in CANVAS)
+    grid = functools.partial(anchor_grid_on, fh, fw, dev, spec.feat_stride,
+                             spec.anchor_scales, spec.anchor_ratios)
+    grid_ms = graph_ms(grid)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(ITERS):
+        grid()
+    host_ms = (time.perf_counter() - t) * 1e3 / ITERS
+    torch.cuda.synchronize()
+    print(f"time {label} anchor grid ({fh}x{fw}x{spec.num_anchors}, built by "
+          f"each forward): {host_ms:.3f} ms of host enqueue (mean of "
+          f"{ITERS}), {grid_ms:.4f} ms on the card (graph replay) [{card}]")
     rows = {name: kernel_row(card, label, name, args, kwargs, launches[name])
             for name, (args, kwargs) in record.items()}
     print(f"phase {label}: {time.perf_counter() - t0:.1f} s")
@@ -1830,6 +1871,306 @@ def loop_cli(root, tmp, weights, settings):
         raise AssertionError("trainval_net CLI: snapshot or event files")
 
 
+def op_recorder(log):
+    """A dispatch mode that appends (wrapper name, op args) to log for each
+    call of K1's and K2's operators: an exported program calls the ops, not
+    the Python wrappers that nms_route patches."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    names = {torch.ops.frcnn.nms_keep_mask.default: "nms_keep_mask_batched",
+             torch.ops.frcnn.batched_nms_keep.default: "batched_nms_keep"}
+
+    class Recorder(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in names:
+                log.append((names[func], args))
+            return func(*args, **(kwargs or {}))
+    return Recorder()
+
+
+def wrapper_call(name, op_args):
+    """The (args, kwargs) of a wrapper call equal to an operator call."""
+    boxes, valid, thresh, plus_one, suppress_eq = op_args[:5]
+    kwargs = dict(plus_one=plus_one, suppress_eq=suppress_eq)
+    if name == "nms_keep_mask_batched":
+        max_keep = op_args[5]
+        kwargs["max_keep"] = None if max_keep > valid.shape[1] else max_keep
+    return (boxes, valid, thresh), kwargs
+
+
+def modules_of(prefixes):
+    """The modules of JAX, flax, the JAX package or under prefixes that
+    this process has imported."""
+    return sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "flax", "tf_faster_rcnn_tpu") or m.startswith(
+        prefixes))
+
+
+def serve_child(bundle, inputs_path, out_path, card):
+    """Phase 13's fresh process: load the bundle with no model code, run it
+    on the saved canvases with deterministic cuDNN (K1 and K2 once per
+    call, each equal to its plain version on the inputs the program gave
+    it), save its outputs, time the exported step and the kernels; prints
+    one line 'SERVE_CHILD {json}'."""
+    import torch
+    t = time.perf_counter()
+    from tf_faster_rcnn_torch.utils.serving import load_detect
+    t_import = time.perf_counter() - t
+    t = time.perf_counter()
+    manifest, fns = load_detect(bundle)
+    t_load = time.perf_counter() - t
+    loaded = modules_of(SERVE_FORBIDDEN)
+    if loaded:
+        raise AssertionError(f"loading the bundle imported {loaded}")
+    from tf_faster_rcnn_torch.ops import nms_kernels as K
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inputs = torch.load(inputs_path)
+    errors = {name: 0 for name in kernel_pairs()}
+    outputs, calls, per_call = {}, [], []
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    for key, args in inputs.items():
+        args = tuple(a.cuda() for a in args)
+        K.reset_launch_counts()
+        with op_recorder(calls):
+            out = fns[tuple(key)](*args)
+        torch.cuda.synchronize()
+        per_call.append(K.launch_counts())
+        outputs[key] = tuple(o.cpu() for o in out)
+    torch.backends.cudnn.deterministic = False
+    torch.save(outputs, out_path)
+    if any(c != {"nms_keep_mask_batched": 1, "batched_nms_keep": 1}
+           for c in per_call):
+        raise AssertionError(f"exported program launches per call {per_call}")
+    for name, op_args in calls:
+        kernel, plain = kernel_pairs()[name]
+        args, kwargs = wrapper_call(name, op_args)
+        check_equal(errors, name, kernel(*args, **kwargs),
+                    plain(*args, **kwargs),
+                    f"serve path {tuple(args[0].shape)} {kwargs}")
+    step_ms = {}
+    for key, args in inputs.items():
+        args = tuple(a.cuda() for a in args)
+        fn = fns[tuple(key)]
+        step_ms[f"{key[0]}x{key[1]}"] = timed(lambda: fn(*args))
+    rows = {}
+    for name in kernel_pairs():
+        op_args = next(a for n, a in calls if n == name)
+        args, kwargs = wrapper_call(name, op_args)
+        rows[name] = kernel_row(card, "serve f32", name, args, kwargs,
+                                sum(c[name] for c in per_call))
+    loaded = modules_of(SERVE_FORBIDDEN)
+    if loaded:
+        raise AssertionError(f"running the bundle imported {loaded}")
+    print("SERVE_CHILD " + json.dumps({
+        "import_s": t_import, "load_s": t_load, "per_call": per_call,
+        "n_calls": len(calls), "errors": errors, "step_ms": step_ms,
+        "rows": rows, "device": manifest["device"],
+        "nms_kernels": manifest["nms_kernels"]}))
+
+
+def phase_serve(card, dev, errors):
+    """Phase 13 (docstring): the res101 bundle exported, reloaded in a fresh
+    process and compared with the live step; tools.serve over phase 11's
+    images, tools.demo over its own; returns the kernels' rows."""
+    import tempfile
+    from tf_faster_rcnn_torch.config import (cfg_from_file, cfg_from_list,
+                                             reset_cfg)
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        write_eval_tree(tmp)
+        reset_cfg()
+        cfg_from_file(os.path.join(root, EVAL_CFG_FILE))
+        cfg_from_list(EVAL_SET + ["DATA_DIR", tmp, "ROOT_DIR", tmp])
+        try:
+            rows = serve_in_process(card, dev, errors, root, tmp)
+        finally:
+            reset_cfg()
+    print(f"phase serve f32: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def serve_batches(paths, buckets, prep):
+    """paths grouped by orientation bucket from their headers, in batches
+    of BATCH with each bucket's tail repeating its last image, as
+    tools.serve runs them: [(bucket, paths, prep(images, bucket))]."""
+    from tf_faster_rcnn_torch.data.blob import image_size, read_image_bgr
+    groups = {}
+    for p in paths:
+        h, w = image_size(p)
+        groups.setdefault(buckets[0] if w >= h else buckets[1], []).append(p)
+    out = []
+    for bucket, group in groups.items():
+        for i in range(0, len(group), BATCH):
+            chunk = group[i:i + BATCH]
+            ims = [read_image_bgr(p) for p in chunk]
+            ims += ims[-1:] * (BATCH - len(chunk))
+            out.append((bucket, chunk, prep(ims, bucket)))
+    return out
+
+
+def serve_in_process(card, dev, errors, root, tmp):
+    import torch
+    from tf_faster_rcnn_torch.config import canvas_buckets, cfg
+    from tf_faster_rcnn_torch.datasets.factory import get_imdb
+    from tf_faster_rcnn_torch.engine import test_engine as E
+    from tf_faster_rcnn_torch.models.init import init_model
+    from tf_faster_rcnn_torch.models.network import FasterRCNN, spec_from_cfg
+    from tf_faster_rcnn_torch.utils.checkpoint import save_params
+    from tf_faster_rcnn_torch.utils.serving import PARAMS
+    spec = spec_from_cfg("res101", NUM_CLASSES, "TEST")
+    model = FasterRCNN(spec).eval()
+    init_model(model, torch.Generator().manual_seed(SEED))
+    buckets = canvas_buckets(cfg.TEST)
+    if spec.compute_dtype != "float32" or len(buckets) != 2:
+        raise AssertionError(f"serve cfg: {spec.compute_dtype}, {buckets}")
+
+    def run(*args, env=os.environ):
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *args], cwd=tmp,
+                              env=dict(env, PYTHONPATH=root),
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"{args[0]} exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+        return proc.stdout.splitlines(), time.perf_counter() - t
+
+    # export through the CLI a user runs, on the saved weights, with its
+    # --verify (exported == live at atol 0, default cuDNN); each bucket's
+    # trace and write from the files' times (params.pt is written first)
+    weights = os.path.join(tmp, EVAL_WEIGHTS)
+    save_params(weights, model)
+    bundle = os.path.join(tmp, "bundle")
+    lines, seconds = run(
+        "tf_faster_rcnn_torch.tools.export_model", "--cfg",
+        os.path.join(root, EVAL_CFG_FILE), "--net", "res101", "--model",
+        weights, "--out", bundle, "--batch", str(BATCH), "--verify", "--set",
+        *EVAL_SET, env=CALLER_ENV)
+    with open(os.path.join(bundle, "manifest.json")) as f:
+        manifest = json.load(f)
+    nbytes = {f: os.path.getsize(os.path.join(bundle, f))
+              for f in sorted(os.listdir(bundle))}
+    files = [PARAMS] + [e["file"] for e in manifest["artifacts"]]
+    mtimes = [os.path.getmtime(os.path.join(bundle, f)) for f in files]
+    per_bucket = {f"{c[0]}x{c[1]}": round(mtimes[i + 1] - mtimes[i], 3)
+                  for i, c in enumerate(buckets)}
+    verified = [ln for ln in lines if ln.startswith("verified ")]
+    print(f"serve export: tools.export_model --verify, res101 f32 B={BATCH} "
+          f"buckets {buckets}, in {seconds:.2f} s (process start, weights "
+          f"load, export and verify); per bucket (trace + write) "
+          + json.dumps(per_bucket) + f"; bundle {sum(nbytes.values())} "
+          f"bytes {nbytes}; device {manifest['device']}, nms_kernels "
+          f"{manifest['nms_kernels']}; {verified} [{card}]")
+    if [tuple(e["canvas"]) for e in manifest["artifacts"]] != list(buckets) \
+            or len(verified) != len(buckets):
+        raise AssertionError(f"export_model: {lines[-5:]}")
+
+    # phase 11's first batch of each orientation, live, deterministic cuDNN
+    imdb = get_imdb("voc_2007_test")
+    paths = [imdb.image_path_at(i) for i in range(imdb.num_images)]
+    batches = serve_batches(paths, buckets,
+                            lambda ims, bucket: E._prep_batch(ims, bucket,
+                                                              dev))
+    detect = E.make_detect_fn(model, spec)
+    first = {}
+    for bucket, _, inputs in batches:
+        first.setdefault(bucket, inputs)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    live = {b: tuple(o.cpu() for o in detect(*x)) for b, x in first.items()}
+    torch.backends.cudnn.deterministic = False
+    inputs_path = os.path.join(tmp, "serve_inputs.pt")
+    torch.save({b: tuple(a.cpu() for a in x) for b, x in first.items()},
+               inputs_path)
+    live_ms = {f"{b[0]}x{b[1]}": timed(lambda: detect(*x))
+               for b, x in first.items()}
+
+    # the fresh process
+    env = dict(os.environ, PYTHONPATH=root)
+    out_path = os.path.join(tmp, "serve_out.pt")
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke.serve_child(*sys.argv[2:])")
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, root, bundle,
+                           inputs_path, out_path, card], cwd=tmp, env=env,
+                          capture_output=True, text=True, timeout=900)
+    child_s = time.perf_counter() - t
+    if proc.returncode:
+        raise AssertionError(f"serve child exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    for line in proc.stdout.splitlines():
+        if not line.startswith("SERVE_CHILD "):
+            print(line)
+    child = json.loads(next(ln for ln in proc.stdout.splitlines()
+                            if ln.startswith("SERVE_CHILD "))[12:])
+    for name, err in child["errors"].items():
+        errors[name] = max(errors[name], err)
+    exported = torch.load(out_path)
+    same = {f"{b[0]}x{b[1]}": all(torch.equal(g, w) for g, w in zip(
+        exported[b], live[b], strict=True)) for b in live}
+    diff = {f"{b[0]}x{b[1]}": float((exported[b][0] - live[b][0]).abs().max())
+            for b in live}
+    print(f"serve reload in a fresh process ({child_s:.1f} s in all): "
+          f"import {child['import_s']:.3f} s, load_detect "
+          f"{child['load_s']:.3f} s, no JAX or port models/engine/config "
+          f"imported; launches per call {child['per_call']}; exported == "
+          f"live (deterministic cuDNN) {same}, max |det diff| {diff}")
+    if not all(same.values()):
+        raise AssertionError(f"exported and live detections differ: {diff}")
+    for key in live_ms:
+        print(f"time serve step {key}: exported {child['step_ms'][key]:.3f} "
+              f"ms (fresh process), live {live_ms[key]:.3f} ms "
+              f"(make_detect_fn), CUDA events, mean of {ITERS} after "
+              f"{WARMUP} warm-up (res101 f32, TF32 off, B={BATCH}) [{card}]")
+
+    # tools.serve over the 64 images, against the live step's rows; with
+    # this process's cuBLAS workspace, which the live step ran with
+    thresh = 0.0
+    serve_json = os.path.join(tmp, "serve.json")
+    lines, seconds = run("tf_faster_rcnn_torch.tools.serve", "--bundle",
+                         bundle, "--thresh", str(thresh), "--json",
+                         serve_json, *paths)
+    want = {}
+    for _, chunk, inputs in batches:
+        det, dv = detect(*inputs)
+        det, dv = det.cpu(), dv.cpu()
+        for j, p in enumerate(chunk):
+            want[p] = det[j][dv[j] & (det[j, :, 1] >= thresh)].tolist()
+    with open(serve_json) as f:
+        got = json.load(f)
+    served = [ln for ln in lines if ln.startswith("served ")][-1]
+    n_rows = sum(map(len, got.values()))
+    print(f"serve CLI: tools.serve in {seconds:.1f} s (process start and "
+          f"load included), {len(paths)} images, {n_rows} rows >= {thresh}; "
+          f"JSON equal to the live step's rows {got == want}; {served} "
+          f"[{card}]")
+    if got != want or n_rows == 0:
+        raise AssertionError("serve CLI: JSON differs from the live step")
+
+    # tools.demo over its 5 generated images, on seeded weights
+    del model, detect
+    torch.cuda.empty_cache()
+    demo_dir, demo_out = os.path.join(tmp, "demo"), os.path.join(tmp, "out")
+    demo_json = os.path.join(tmp, "demo.json")
+    lines, seconds = run("tf_faster_rcnn_torch.tools.demo", "--demo-dir",
+                         demo_dir, "--out-dir", demo_out, "--json", demo_json,
+                         env=CALLER_ENV)
+    with open(demo_json) as f:
+        dets = json.load(f)
+    figures = sorted(os.listdir(demo_out))
+    took = [float(ln.split()[2][:-1]) * 1e3 for ln in lines
+            if ln.startswith("Detection took")]
+    print(f"demo CLI: tools.demo in {seconds:.1f} s (process start, model "
+          f"build and image generation included): {len(dets)} images, "
+          f"figures {figures}; im_detect ms per image {took} (the first "
+          f"warms up), mean of the rest {np.mean(took[1:]):.3f} ms [{card}]")
+    if len(dets) != 5 or len(figures) != 5 or len(took) != 5:
+        raise AssertionError("demo CLI: figures or JSON missing")
+    return child["rows"]
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "tf_faster_rcnn_torch")):
@@ -1878,6 +2219,7 @@ def main():
         batch=TOP_BATCH)
     paths["eval f32"] = phase_eval(card, dev, errors)
     paths.update(phase_train_loop(card, dev, errors, train_ms))
+    paths["serve f32"] = phase_serve(card, dev, errors)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,

@@ -1,12 +1,15 @@
 """The port's NMS (tf_faster_rcnn_torch/ops/nms*.py) against the JAX package.
 
-On the CPU the wrappers run the plain versions of kernels K1 and K2; these
-tests hold them to the Pallas kernels in interpret mode, the jnp block NMS
-and the native C++ oracle. Tolerance: none, the masks and indices must be
-exactly equal. The CUDA engine's algorithm (csrc/nms.cu) is emulated in
-numpy and held exactly to the plain K1 here; the CUDA kernels themselves are
-held to the plain versions by the `cuda`-marked test at the end, on the
-card.
+On the CPU the wrappers run the plain versions of kernels K1 and K2 (the
+``cpu`` implementations of the operators frcnn::nms_keep_mask and
+frcnn::batched_nms_keep); these tests hold them, and the operators called
+directly, to the Pallas kernels in interpret mode, the jnp block NMS and the
+native C++ oracle, check the operators with torch.library.opcheck, and
+export them as one graph node each. Tolerance: none, the masks and indices
+must be exactly equal. The CUDA engine's algorithm (csrc/nms.cu) is
+emulated in numpy and held exactly to the plain K1 here; the CUDA kernels
+themselves are held to the plain versions by the `cuda`-marked test at the
+end, on the card.
 """
 
 import jax.numpy as jnp
@@ -23,6 +26,8 @@ from tf_faster_rcnn_torch.ops import nms as tnms
 from tf_faster_rcnn_torch.ops.boxes import bbox_overlaps
 from tf_faster_rcnn_torch.ops import nms_kernels as K
 
+K1_OP = torch.ops.frcnn.nms_keep_mask.default
+K2_OP = torch.ops.frcnn.batched_nms_keep.default
 
 def _sorted_boxes(rng, n):
     """tests/test_pallas_nms.py's generator: boxes sorted by a random score."""
@@ -54,7 +59,9 @@ def test_k1_plain_matches_pallas(rng, n, plus_one, suppress_eq):
 
 def test_k1_max_keep_prefix(rng):
     """The first max_keep survivors equal the Pallas early-exit prefix; the
-    port also zeroes every later bit (its documented cap)."""
+    port also zeroes every later bit (its documented cap). The operator,
+    called directly on a batch of one, takes the cap as is and N + 1 for
+    none."""
     boxes = _sorted_boxes(rng, 1500)
     valid = np.ones(1500, bool)
     kp = np.asarray(pallas_nms_keep_mask(boxes, valid, 0.5, max_keep=40,
@@ -62,6 +69,11 @@ def test_k1_max_keep_prefix(rng):
     kt = _k1(boxes, valid, 0.5, max_keep=40)
     np.testing.assert_array_equal(np.flatnonzero(kt),
                                   np.flatnonzero(kp)[:40])
+    args = (torch.from_numpy(boxes[None]), torch.from_numpy(valid[None]), 0.5,
+            False, False)
+    np.testing.assert_array_equal(K1_OP(*args, 40)[0].numpy(), kt)
+    np.testing.assert_array_equal(K1_OP(*args, 1501)[0].numpy(),
+                                  _k1(boxes, valid, 0.5))
 
 
 def test_k1_invalid_stretch(rng):
@@ -72,6 +84,13 @@ def test_k1_invalid_stretch(rng):
     kt = _k1(boxes, valid, 0.5)
     np.testing.assert_array_equal(kt, kp)
     assert not kt[50:90].any()
+    got = K1_OP(torch.from_numpy(np.stack([boxes] * 2)),
+                torch.from_numpy(np.stack([valid, np.ones(256, bool)])), 0.5,
+                False, False, 257)
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got[0].numpy(), kp)
+    np.testing.assert_array_equal(got[1].numpy(),
+                                  _k1(boxes, np.ones(256, bool), 0.5))
 
 
 @pytest.mark.parametrize("plus_one,suppress_eq", [
@@ -116,6 +135,10 @@ def test_k2_plain_matches_pallas(rng, plus_one):
     kt = K.batched_nms_keep(torch.from_numpy(boxes), torch.from_numpy(valid),
                             0.4, plus_one=plus_one).numpy()
     np.testing.assert_array_equal(kt, kp)
+    got = K2_OP(torch.from_numpy(boxes), torch.from_numpy(valid), 0.4,
+                plus_one, False)
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), kp)
 
 
 def test_k2_plain_matches_pallas_grid_tiled(rng):
@@ -192,6 +215,41 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
             fn(boxes.transpose(0, 1), valid.t(), 0.5)
     with pytest.raises(ValueError):
         K.nms_keep_mask_batched(boxes, valid, 0.5, max_keep=0)
+
+
+@pytest.mark.parametrize("op,extra", [(K1_OP, (False, False, 9)),
+                                      (K1_OP, (True, True, 41)),
+                                      (K2_OP, (True, False)),
+                                      (K2_OP, (False, True))])
+def test_opcheck(rng, op, extra):
+    """torch.library.opcheck on each operator: its schema, its fake
+    implementation against the real one, and its registration for
+    tracing."""
+    boxes = torch.from_numpy(np.stack([_sorted_boxes(rng, 40)] * 3))
+    valid = torch.from_numpy(rng.rand(3, 40) > 0.2)
+    torch.library.opcheck(op, (boxes, valid, 0.5) + extra)
+
+
+def test_ops_trace_as_one_node_each(rng):
+    """torch.export of the two wrappers records one operator node each, on
+    fake tensors (no data pointer is read while tracing)."""
+    class Both(torch.nn.Module):
+        def forward(self, boxes, valid):
+            return (K.nms_keep_mask_batched(boxes, valid, 0.7, max_keep=10),
+                    K.batched_nms_keep(boxes, valid, 0.3, plus_one=True))
+
+    boxes = torch.from_numpy(np.stack([_sorted_boxes(rng, 50)] * 2))
+    valid = torch.ones(2, 50, dtype=torch.bool)
+    ep = torch.export.export(Both(), (boxes, valid))
+    targets = [n.target for n in ep.graph.nodes if n.op == "call_function"]
+    assert targets.count(K1_OP) == 1 and targets.count(K2_OP) == 1
+    assert len(targets) == 2
+    for got, want in zip(ep.module()(boxes, valid),
+                         (K.nms_keep_mask_plain(boxes, valid, 0.7,
+                                                max_keep=10),
+                          K.batched_nms_keep_plain(boxes, valid, 0.3,
+                                                   plus_one=True))):
+        assert torch.equal(got, want)
 
 
 def test_cpu_calls_count_no_launch(rng):

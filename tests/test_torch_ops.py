@@ -56,6 +56,44 @@ def test_anchors_copy_equals_original(h, w, stride, scales, ratios):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("h,w,stride,scales,ratios", [
+    (38, 64, 16, (8, 16, 32), (0.5, 1, 2)),
+    (64, 38, 16, (8, 16, 32), (0.5, 1, 2)),
+    (8, 8, 16, (2, 4), (0.5, 1, 2)),
+    (5, 7, 8, (1, 3), (0.25, 1, 4)),
+])
+def test_anchor_grid_on_device_equals_original(h, w, stride, scales, ratios):
+    """The grid the model builds in each forward (torch ops, no host copy)
+    is the JAX package's, bit for bit."""
+    got = tanchors.anchor_grid_on(h, w, "cpu", stride, scales, ratios)
+    want = janchors.anchor_grid(h, w, stride, scales, ratios)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.view(np.uint32))
+
+
+def test_model_keeps_no_tensor_outside_its_state_dict():
+    """The forward builds the anchors from the feature shape: the module
+    holds no tensor cache that torch.export would see assigned while
+    tracing, and its state_dict keys are its parameters and buffers."""
+    from tf_faster_rcnn_torch.models import network as tnet
+    spec = tnet.ModelSpec("mobile", 21, anchor_scales=(2, 4),
+                          depth_multiplier=0.25)
+    model = tnet.FasterRCNN(spec, device="cpu").eval()
+    keys = list(model.state_dict())
+    with torch.no_grad():
+        model(torch.zeros(1, 64, 96, 3), torch.tensor([[64.0, 96.0, 1.0]]))
+    assert list(model.state_dict()) == keys
+    named = [k for k, _ in model.named_parameters()] + \
+        [k for k, _ in model.named_buffers()]
+    assert sorted(named) == sorted(keys)
+    tensors = [k for m in model.modules() for k, v in vars(m).items()
+               if k not in ("_parameters", "_buffers") and (
+                   torch.is_tensor(v) or (isinstance(v, dict) and any(
+                       torch.is_tensor(x) for x in v.values())))]
+    assert tensors == []
+
+
 def test_bbox_xform_clip_is_bit_identical():
     assert tboxes.BBOX_XFORM_CLIP == jboxes.BBOX_XFORM_CLIP
 

@@ -212,8 +212,8 @@ def prep_batch(ims, canvas, device, target_sizes, max_size, pixel_means,
     max_size. pixel_means: the three BGR means, a tensor on device. Scales
     and extents come from the shapes, on the host."""
     b = len(ims)
-    images = torch.zeros(batch_image_shape(b, canvas), dtype=torch.float32,
-                         device=device)
+    images = torch.zeros((b, int(canvas[0]), int(canvas[1]), 3),
+                         dtype=torch.float32, device=device)
     im_info = np.zeros((b, 3), np.float32)
     orig_hw = np.zeros((b, 2), np.float32)
     for i, im in enumerate(ims):

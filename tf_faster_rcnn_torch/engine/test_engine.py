@@ -36,7 +36,8 @@ from tf_faster_rcnn_torch.engine.detect import postprocess_detections
 from tf_faster_rcnn_torch.utils.native import nms_cpu
 from tf_faster_rcnn_torch.utils.timer import Timer
 
-__all__ = ["make_detect_fn", "im_detect", "test_net", "apply_nms"]
+__all__ = ["make_detect_fn", "detect_step", "im_detect", "test_net",
+           "apply_nms"]
 
 
 def make_detect_fn(model, spec, max_per_image: Optional[int] = None,
@@ -54,14 +55,24 @@ def make_detect_fn(model, spec, max_per_image: Optional[int] = None,
 
     @torch.inference_mode()
     def detect(image, im_info, orig_hw):
-        out = model(image, im_info)
-        return postprocess_detections(
-            out["rois"], out["roi_valid"], out["cls_prob"], out["bbox_pred"],
-            im_info, orig_hw, num_classes=spec.num_classes,
-            max_per_image=mpi, nms_thresh=spec.nms_thresh,
-            score_thresh=score_thresh, bbox_reg=spec.bbox_reg)
+        return detect_step(model, spec, mpi, score_thresh, image, im_info,
+                           orig_hw)
 
     return detect
+
+
+def detect_step(model, spec, max_per_image: int, score_thresh: float,
+                image, im_info, orig_hw, top_pad=None):
+    """One detect step, the body of make_detect_fn's function and of the
+    exported program (utils/serving.py): model(image, im_info, top_pad=...)
+    and the postprocess at spec's settings. model is the FasterRCNN or a
+    callable with its forward's signature."""
+    out = model(image, im_info, top_pad=top_pad)
+    return postprocess_detections(
+        out["rois"], out["roi_valid"], out["cls_prob"], out["bbox_pred"],
+        im_info, orig_hw, num_classes=spec.num_classes,
+        max_per_image=max_per_image, nms_thresh=spec.nms_thresh,
+        score_thresh=score_thresh, bbox_reg=spec.bbox_reg)
 
 
 def _pixel_means(device) -> torch.Tensor:

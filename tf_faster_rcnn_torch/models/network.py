@@ -34,7 +34,7 @@ from torch import nn
 from tf_faster_rcnn_torch.models import mobilenet_v1, resnet_v1, vgg16
 from tf_faster_rcnn_torch.models.layers import ConvSame, Dense
 from tf_faster_rcnn_torch.models.targets import anchor_target, proposal_target
-from tf_faster_rcnn_torch.ops.anchors import anchor_grid
+from tf_faster_rcnn_torch.ops.anchors import anchor_grid_on
 from tf_faster_rcnn_torch.ops.boxes import (BBOX_XFORM_CLIP,
                                             bbox_transform_inv, clip_boxes)
 from tf_faster_rcnn_torch.ops.nms import sorted_nms
@@ -287,21 +287,10 @@ class FasterRCNN(nn.Module):
         self.tail = tail
         self.cls_score = Dense(tail.out_channels, spec.num_classes, dt)
         self.bbox_pred = Dense(tail.out_channels, 4 * spec.num_classes, dt)
-        self._anchors = {}
         mask = trainable_mask(self)
         for name, p in self.named_parameters():
             p.requires_grad_(mask[name])
         self.to(device)
-
-    def anchors(self, fh: int, fw: int, device) -> torch.Tensor:
-        """The [fh*fw*A, 4] anchor grid on device, built once per shape."""
-        key = (fh, fw, str(device))
-        if key not in self._anchors:
-            s = self.spec
-            self._anchors[key] = torch.from_numpy(anchor_grid(
-                fh, fw, s.feat_stride, s.anchor_scales,
-                s.anchor_ratios)).to(device)
-        return self._anchors[key]
 
     def _proposals(self, anchors, rpn_bbox, fg_scores, im_info, fw: int,
                    top_pad=None):
@@ -429,7 +418,10 @@ class FasterRCNN(nn.Module):
         x = image.to(s.dtype).permute(0, 3, 1, 2)
         net_conv = self.head(x, im_info[:, :2])           # [B, C, fh, fw]
         fh, fw = net_conv.shape[2], net_conv.shape[3]
-        anchors = self.anchors(fh, fw, image.device)
+        # built by each forward from the feature shape: the module keeps no
+        # tensor outside its state_dict, so torch.export traces plain ops
+        anchors = anchor_grid_on(fh, fw, image.device, s.feat_stride,
+                                 s.anchor_scales, s.anchor_ratios)
         n_anchors = fh * fw * a
 
         rpn = F.relu(self.rpn_conv(net_conv))

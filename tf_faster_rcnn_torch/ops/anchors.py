@@ -1,17 +1,23 @@
-"""Anchor generation, in numpy.
+"""Anchor generation.
 
 A copy of ``tf_faster_rcnn_tpu/ops/anchors.py``, which cannot be imported
 without JAX (its package ``__init__`` imports the jnp box ops). The tests
 hold this copy equal to the original. ``generate_anchors`` reproduces the
-reference's base-anchor table; ``anchor_grid`` shifts it over a feature grid
-in (y, x, a) order, the RPN head's H x W x A channel layout.
+reference's base-anchor table; ``anchor_grid_on`` shifts it over a feature
+grid in (y, x, a) order, the RPN head's H x W x A channel layout, with torch
+ops on a device. Every value is a half-integer, exact in float64 and in
+float32, so the grid equals the original's numpy one bit for bit. It adds
+each base coordinate to the shifts as a Python float, so the grid needs no
+host copy (and no host sync) and traces into ``torch.export`` as plain ops.
+``anchor_grid`` is the same grid as a numpy array.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["generate_anchors", "anchor_grid"]
+__all__ = ["generate_anchors", "anchor_grid", "anchor_grid_on"]
 
 
 def _whctrs(anchor):
@@ -50,17 +56,23 @@ def generate_anchors(base_size=16, ratios=(0.5, 1, 2), scales=(8, 16, 32)):
     return np.vstack(out)
 
 
-def anchor_grid(feat_h: int, feat_w: int, feat_stride: int = 16,
-                anchor_scales=(8, 16, 32), anchor_ratios=(0.5, 1, 2)):
-    """All anchors over a feat_h x feat_w grid, [feat_h*feat_w*A, 4] f32,
-    row-major over (y, x, a)."""
+def anchor_grid_on(feat_h: int, feat_w: int, device, feat_stride: int = 16,
+                   anchor_scales=(8, 16, 32), anchor_ratios=(0.5, 1, 2)):
+    """All anchors over a feat_h x feat_w grid, [feat_h*feat_w*A, 4] float32
+    on device, row-major over (y, x, a)."""
     base = generate_anchors(ratios=np.array(anchor_ratios),
                             scales=np.array(anchor_scales))
-    A = base.shape[0]
-    shift_x = np.arange(0, feat_w) * feat_stride
-    shift_y = np.arange(0, feat_h) * feat_stride
-    sx, sy = np.meshgrid(shift_x, shift_y)
-    shifts = np.stack([sx.ravel(), sy.ravel(), sx.ravel(), sy.ravel()], axis=1)
-    K = shifts.shape[0]
-    anchors = base.reshape(1, A, 4) + shifts.reshape(K, 1, 4)
-    return anchors.reshape(K * A, 4).astype(np.float32)
+    sx = torch.arange(feat_w, dtype=torch.float64, device=device)
+    sy = torch.arange(feat_h, dtype=torch.float64, device=device)
+    sy, sx = torch.meshgrid(sy * feat_stride, sx * feat_stride,
+                            indexing="ij")
+    cols = [torch.stack([shift + float(b) for b in base[:, c]], dim=-1)
+            for c, shift in enumerate((sx, sy, sx, sy))]     # [fh, fw, A]
+    return torch.stack(cols, dim=-1).reshape(-1, 4).to(torch.float32)
+
+
+def anchor_grid(feat_h: int, feat_w: int, feat_stride: int = 16,
+                anchor_scales=(8, 16, 32), anchor_ratios=(0.5, 1, 2)):
+    """anchor_grid_on's grid as a numpy array, built on the CPU."""
+    return anchor_grid_on(feat_h, feat_w, "cpu", feat_stride, anchor_scales,
+                          anchor_ratios).numpy()

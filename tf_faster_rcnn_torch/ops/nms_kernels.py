@@ -18,8 +18,20 @@ card both are bound by the length of that serial chain, not by operations
 or bytes (csrc/nms.cu says why). All B images, or all G instances, go in
 one launch, with no host sync.
 
+The engine is bound as two torch operators, ``frcnn::nms_keep_mask`` (K1)
+and ``frcnn::batched_nms_keep`` (K2), registered with
+``torch.library.custom_op``: a ``cuda`` implementation that launches the
+kernel, a ``cpu`` implementation that is the plain version, and a fake one
+for tracing. So ``torch.export`` of a path that calls a wrapper records one
+node per call, whichever device it runs on, and an exported program
+dispatches to the kernel on the card as the live path does. The schema has
+no Optional: K1's "no cap" is ``max_keep = N + 1``. The wrappers check shape,
+dtype, device and contiguity (on fake tensors too); the 16-byte alignment of
+the boxes is checked in the ``cuda`` implementation, on real tensors.
+
 Each wrapper counts its kernel launches in a plain integer attribute,
-``<wrapper>.launches``; the plain versions count nothing.
+``<wrapper>.launches``, bumped in the ``cuda`` implementation, so a launch
+from an exported program counts too; the plain versions count nothing.
 """
 
 from __future__ import annotations
@@ -53,9 +65,6 @@ def _check(boxes, valid, name):
         raise ValueError(f"{name}: boxes and valid must be contiguous")
     if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {boxes.device}")
-    if boxes.device.type == "cuda" and boxes.data_ptr() % 16:
-        raise ValueError(f"{name}: the kernel reads boxes as float4, so they "
-                         "must start on a 16-byte boundary")
 
 
 def _launch_keep(wrapper, boxes, valid, thresh, plus_one, suppress_eq,
@@ -65,6 +74,9 @@ def _launch_keep(wrapper, boxes, valid, thresh, plus_one, suppress_eq,
     input launches nothing)."""
     from tf_faster_rcnn_torch.utils.build import get_lib
     name = wrapper.__name__
+    if boxes.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel reads boxes as float4, so they "
+                         "must start on a 16-byte boundary")
     lib = get_lib()
     g, n = valid.shape
     keep = torch.empty((g, n), dtype=torch.bool, device=boxes.device)
@@ -135,13 +147,10 @@ def nms_keep_mask_batched(boxes, valid, thresh, *, plus_one=False,
     _check(boxes, valid, "nms_keep_mask_batched")
     if max_keep is not None and max_keep < 1:
         raise ValueError(f"max_keep must be >= 1, got {max_keep}")
-    if boxes.device.type == "cpu":
-        return nms_keep_mask_plain(boxes, valid, thresh, plus_one=plus_one,
-                                   suppress_eq=suppress_eq, max_keep=max_keep)
     n = valid.shape[1]
-    return _launch_keep(nms_keep_mask_batched, boxes, valid, thresh,
-                        plus_one, suppress_eq,
-                        n + 1 if max_keep is None else int(max_keep))
+    return torch.ops.frcnn.nms_keep_mask(
+        boxes, valid, float(thresh), bool(plus_one), bool(suppress_eq),
+        n + 1 if max_keep is None else int(max_keep))
 
 
 def batched_nms_keep_plain(boxes, valid, thresh, *, plus_one=False,
@@ -167,15 +176,54 @@ def batched_nms_keep(boxes, valid, thresh, *, plus_one=False,
     each row the greedy keep mask of its instance.
     """
     _check(boxes, valid, "batched_nms_keep")
-    if boxes.device.type == "cpu":
-        return batched_nms_keep_plain(boxes, valid, thresh, plus_one=plus_one,
-                                      suppress_eq=suppress_eq)
-    return _launch_keep(batched_nms_keep, boxes, valid, thresh, plus_one,
-                        suppress_eq, valid.shape[1] + 1)
+    return torch.ops.frcnn.batched_nms_keep(boxes, valid, float(thresh),
+                                            bool(plus_one), bool(suppress_eq))
 
 
 nms_keep_mask_batched.launches = 0
 batched_nms_keep.launches = 0
+
+
+# -- the operators ----------------------------------------------------------
+
+@torch.library.custom_op("frcnn::nms_keep_mask", mutates_args=(),
+                         device_types="cpu")
+def _nms_keep_mask_op(boxes: torch.Tensor, valid: torch.Tensor,
+                      thresh: float, plus_one: bool, suppress_eq: bool,
+                      max_keep: int) -> torch.Tensor:
+    return nms_keep_mask_plain(boxes, valid, thresh, plus_one=plus_one,
+                               suppress_eq=suppress_eq, max_keep=max_keep)
+
+
+@_nms_keep_mask_op.register_kernel("cuda")
+def _(boxes, valid, thresh, plus_one, suppress_eq, max_keep):
+    return _launch_keep(nms_keep_mask_batched, boxes, valid, thresh,
+                        plus_one, suppress_eq, max_keep)
+
+
+@_nms_keep_mask_op.register_fake
+def _(boxes, valid, thresh, plus_one, suppress_eq, max_keep):
+    return torch.empty_like(valid)
+
+
+@torch.library.custom_op("frcnn::batched_nms_keep", mutates_args=(),
+                         device_types="cpu")
+def _batched_nms_keep_op(boxes: torch.Tensor, valid: torch.Tensor,
+                         thresh: float, plus_one: bool,
+                         suppress_eq: bool) -> torch.Tensor:
+    return batched_nms_keep_plain(boxes, valid, thresh, plus_one=plus_one,
+                                  suppress_eq=suppress_eq)
+
+
+@_batched_nms_keep_op.register_kernel("cuda")
+def _(boxes, valid, thresh, plus_one, suppress_eq):
+    return _launch_keep(batched_nms_keep, boxes, valid, thresh, plus_one,
+                        suppress_eq, valid.shape[1] + 1)
+
+
+@_batched_nms_keep_op.register_fake
+def _(boxes, valid, thresh, plus_one, suppress_eq):
+    return torch.empty_like(valid)
 
 
 def reset_launch_counts():

@@ -59,6 +59,27 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
+def load_model_params(model, model_path, net):
+    """Load the weights at model_path into model, in place: None draws them
+    from RNG_SEED (models/init.py), as the reference tests with random
+    weights; a TF ``.ckpt`` prefix or a slim var dict (``.npz``/``.pkl``)
+    goes through the slim import over that draw (what it lacks keeps the
+    draw); a ``.pt`` of save_params or a JAX ``.msgpack`` (params or
+    training snapshot) must hold every tensor. The counterpart of the JAX
+    ``tools/test_net.py::load_model_params``; export_model and demo call it
+    too."""
+    if model_path is None:
+        print('No model given, testing with random initialization '
+              '(reference behavior, test_net.py:116-118)')
+        init_model(model, torch.Generator().manual_seed(cfg.RNG_SEED))
+    elif is_tf_checkpoint(model_path) or model_path.endswith(('.npz',
+                                                              '.pkl')):
+        init_model(model, torch.Generator().manual_seed(cfg.RNG_SEED))
+        load_pretrained_into(model, model_path, net)
+    else:
+        model.load_state_dict(load_params(model_path), strict=True)
+
+
 def main(argv=None):
     args = parse_args(argv)
     print('Called with args:')
@@ -76,16 +97,7 @@ def main(argv=None):
     imdb.competition_mode(args.comp_mode)
     spec = spec_from_cfg(args.net, imdb.num_classes, 'TEST')
     model = FasterRCNN(spec, device=args.device).eval()
-    if args.model is None:
-        print('No model given, testing with random initialization '
-              '(reference behavior, test_net.py:116-118)')
-        init_model(model, torch.Generator().manual_seed(cfg.RNG_SEED))
-    elif is_tf_checkpoint(args.model) or args.model.endswith(('.npz',
-                                                               '.pkl')):
-        init_model(model, torch.Generator().manual_seed(cfg.RNG_SEED))
-        load_pretrained_into(model, args.model, args.net)
-    else:
-        model.load_state_dict(load_params(args.model), strict=True)
+    load_model_params(model, args.model, args.net)
 
     filename = (args.model or 'random').split('/')[-1] + args.tag
     return test_net(model, spec, imdb, filename,

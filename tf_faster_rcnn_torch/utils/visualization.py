@@ -5,14 +5,16 @@ when a drawing function is called, not at import. Functional parity with the
 reference's PIL renderer (lib/utils/visualization.py:17-89): per-class
 colors from the same fixed 121-name palette in the same order (class i keeps
 its color across both packages), labeled rectangles, a batch of one image
-in, an image out. The training loop's GT image summary uses it.
+in, an image out. The training loop's GT image summary uses it, and the
+demo (tools/demo.py) draws its detections with ``draw_detections``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["STANDARD_COLORS", "NUM_COLORS", "draw_bounding_boxes"]
+__all__ = ["STANDARD_COLORS", "NUM_COLORS", "draw_bounding_boxes",
+           "draw_detections"]
 
 # the reference's palette, order-preserved (visualization.py:17-47)
 STANDARD_COLORS = """
@@ -79,3 +81,18 @@ def draw_bounding_boxes(image, gt_boxes, im_info=None):
                       'N%02d-C%02d' % (i, cls), _class_color(cls))
     out = np.asarray(pil).astype(np.float32)
     return out[None] if batched else out
+
+
+def draw_detections(image, dets, class_names):
+    """image: [H, W, 3] uint8 RGB; dets: rows (cls, score, x1, y1, x2, y2)
+    in image coordinates. Returns a PIL image with each row's box outlined
+    in its class's color and labeled 'name score'."""
+    from PIL import Image, ImageDraw
+    pil = Image.fromarray(np.ascontiguousarray(image, np.uint8))
+    canvas = ImageDraw.Draw(pil)
+    for cls, score, x1, y1, x2, y2 in dets:
+        cls = int(cls)
+        _labeled_rect(canvas, [float(x1), float(y1), float(x2), float(y2)],
+                      '{:s} {:.3f}'.format(class_names[cls], float(score)),
+                      _class_color(cls))
+    return pil
