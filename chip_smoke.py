@@ -118,7 +118,30 @@ Phases, in order; any failure raises and the exit code is nonzero:
    the files' times), the bundle's bytes, the load
    in the fresh process, the exported step beside the live step (CUDA
    events, mean of 10 after warm-up), serve images/s from the first decode
-   to the JSON, demo ms per image, and the kernels on the serve path.
+   to the JSON, demo ms per image, and the kernels on the serve path;
+14. from scratch: for res101, vgg16 and mobile at full width,
+   models/init.py::reference_init (the JAX package's initializers) on the
+   card equal, bit for bit, to the same draw on the CPU, and the backbone
+   output's std on a pixel-scale 96x128 input inside (0.05, 20), the JAX
+   gate (tests/test_from_scratch_stability.py). Then the overfit drill,
+   tools.overfit_check's main at its defaults (vgg16 from scratch, bf16
+   compute, 1600 iterations at B = 1, 6 synthetic images, every present
+   class's AP >= 0.99), in process with the NMS calls logged: PASS, K1 once
+   a step at [1, 256] -> 48 (and once a val summary and an eval batch), K2
+   once an eval batch at [20, 32], each kernel equal to its plain version
+   on the first and the last step's inputs and on every eval call. Times:
+   steps/s, and the wall time from the drill's start to the gate;
+15. COCO rehearsal: python -m tf_faster_rcnn_torch.tools.coco_rehearsal in
+   a subprocess at its defaults (res101 from scratch on a synthetic
+   80-class COCO, 4000 images = 500 steps at B = 8, f32, through the
+   drivers tools.train_faster_rcnn and tools.test_faster_rcnn), with the
+   caller's environment and a working dir of this run's: exit 0, and
+   AP@[0.5:0.95] >= 0.05 under both res101.yml and res101-lg.yml. Then its
+   snapshot through test_net in process on the minival under
+   res101-lg.yml: K1 at [8, 6000] -> 1000 and K2 at [640, 1000] once a
+   batch, each equal to its plain version on every call. Times: ms a
+   step (the loop's own mean), the drivers' wall times, the kernels on the
+   lg eval path.
 
 Each phase from 7 on prints its wall time. The kernel line gives, beside
 each kernel's main-path fields (phase 4), its launches, graph-replay time,
@@ -213,6 +236,15 @@ CLI_ITERS = 16
 SERVE_FORBIDDEN = ("tf_faster_rcnn_torch.models",
                    "tf_faster_rcnn_torch.engine",
                    "tf_faster_rcnn_torch.config")
+# phase 14: reference_init at full width, and the JAX gate on the init's
+# backbone-output std on a pixel-scale input; the overfit drill's TRAIN
+# and TEST post-NMS counts (tools/overfit_check.py::configure_tiny)
+INIT_NETS = ("res101", "vgg16", "mobile")
+INIT_HW = (96, 128)
+INIT_STD = (0.05, 20.0)
+OVERFIT_KEEP = (48, 32)
+# phase 15: the rehearsal's second eval config
+REHEARSAL_LG_CFG = "experiments/cfgs/res101-lg.yml"
 REPLACES = {
     "nms_keep_mask_batched": "tf_faster_rcnn_tpu/ops/pallas_nms.py:55",
     "batched_nms_keep": "tf_faster_rcnn_tpu/ops/pallas_nms.py:149",
@@ -2171,6 +2203,227 @@ def serve_in_process(card, dev, errors, root, tmp):
     return child["rows"]
 
 
+def call_counts(calls):
+    """name -> the number of calls of each kernel in an nms_route log."""
+    return {name: sum(n == name for n, _, _ in calls)
+            for name in kernel_pairs()}
+
+
+def phase_from_scratch(card, dev, errors):
+    """Phase 14 (docstring): reference_init on the card against the CPU
+    draw and the init's feature scale; the overfit drill; returns the
+    kernels' rows on the drill's paths."""
+    t0 = time.perf_counter()
+    init_draws(dev)
+    rows = overfit_drill(card, errors)
+    print(f"phase from scratch: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def init_draws(dev):
+    """For each of INIT_NETS at full width: reference_init on the card
+    equal, bit for bit, to the same draw on the CPU; the backbone output's
+    std on a pixel-scale INIT_HW input inside INIT_STD (the JAX gate,
+    tests/test_from_scratch_stability.py)."""
+    import torch
+    from tf_faster_rcnn_torch.config import cfg
+    from tf_faster_rcnn_torch.models.init import reference_init
+    from tf_faster_rcnn_torch.models.network import FasterRCNN, ModelSpec
+    h, w = INIT_HW
+    im = (np.random.RandomState(SEED).rand(1, h, w, 3).astype(np.float32)
+          * 255.0 - cfg.PIXEL_MEANS.reshape(1, 1, 1, 3).astype(np.float32))
+    x = torch.from_numpy(im).permute(0, 3, 1, 2).to(dev)
+    extent = torch.tensor([[h, w]], dtype=torch.float32, device=dev)
+    for net in INIT_NETS:
+        spec = ModelSpec(net, NUM_CLASSES)
+        on_card = FasterRCNN(spec).eval()
+        reference_init(on_card, torch.Generator().manual_seed(SEED))
+        on_cpu = FasterRCNN(spec, device="cpu")
+        reference_init(on_cpu, torch.Generator().manual_seed(SEED))
+        want = on_cpu.state_dict()
+        got = on_card.state_dict()
+        equal = all(torch.equal(t.cpu(), want[k]) for k, t in got.items())
+        with torch.no_grad():
+            std = float(on_card.head(x, extent).std())
+        print(f"reference_init {net}: {len(got)} tensors, "
+              f"{sum(t.numel() for t in got.values())} values, the card's "
+              f"draw equal to the CPU's bit for bit: {equal}; backbone "
+              f"output std {std:.4f} on a pixel-scale {h}x{w} input (gate "
+              f"{INIT_STD})")
+        if not equal or not INIT_STD[0] < std < INIT_STD[1]:
+            raise AssertionError(f"reference_init {net}: draw or scale")
+        del on_card, on_cpu, want, got
+    torch.cuda.empty_cache()
+
+
+def overfit_drill(card, errors):
+    """tools.overfit_check's main at its defaults (vgg16 from scratch, 1600
+    iterations, 6 images, gate 0.99), in process with the NMS calls logged:
+    PASS, the launches, and each kernel equal to its plain version on the
+    first and the last step's inputs and on every eval call."""
+    import tempfile
+    import torch
+    from tf_faster_rcnn_torch.config import reset_cfg
+    from tf_faster_rcnn_torch.engine import train_loop as L
+    from tf_faster_rcnn_torch.ops import nms_kernels as K
+    from tf_faster_rcnn_torch.tools import overfit_check
+    calls, summaries = [], []
+    saved = L.SolverWrapper._summary
+
+    def summary(self, *args, **kwargs):   # its val forward runs K1 too
+        start = len(calls)
+        out = saved(self, *args, **kwargs)
+        summaries.append((start, len(calls)))
+        return out
+
+    reset_cfg()
+    L.SolverWrapper._summary = summary
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_overfit_") as tmp:
+            K.reset_launch_counts()
+            t = time.perf_counter()
+            with nms_route(log=calls):
+                record = overfit_check.main(["--workdir", tmp])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = K.launch_counts()
+    finally:
+        L.SolverWrapper._summary = saved
+        reset_cfg()
+    k1 = "nms_keep_mask_batched"
+    steps = [(a, k) for i, (n, a, k) in enumerate(calls)
+             if n == k1 and k["max_keep"] == OVERFIT_KEEP[0]
+             and not any(s <= i < e for s, e in summaries)]
+    evals = [(n, a, k) for n, a, k in calls
+             if n != k1 or k["max_keep"] == OVERFIT_KEEP[1]]
+    print(f"overfit drill: {record['net']} from scratch, {record['iters']} "
+          f"iterations (B=1, bf16 compute), APs {record['aps']}, PASS "
+          f"{record['ok']} (gate {record['gate']}); {len(steps)} train steps"
+          f" through K1 {tuple(steps[0][0][0].shape)} -> "
+          f"{steps[0][1]['max_keep']}, {len(summaries)} val summaries, "
+          f"{len(evals)} eval calls; launches {launches}")
+    if (not record["ok"] or len(steps) != record["iters"]
+            or launches != call_counts(calls) or min(launches.values()) == 0):
+        raise AssertionError("overfit drill: FAIL, or the kernels did not "
+                             "run as the drill's path runs them")
+    for label, (name, args, kwargs) in (
+            [("first step", (k1,) + steps[0]), ("last step", (k1,) + steps[-1])]
+            + [("eval", c) for c in evals]):
+        kernel, plain = kernel_pairs()[name]
+        check_equal(errors, name, kernel(*args, **kwargs),
+                    plain(*args, **kwargs),
+                    f"overfit {label} {tuple(args[0].shape)} {kwargs}")
+    print(f"time overfit drill: {record['iters']} steps in "
+          f"{record['train_s']:.1f} s = "
+          f"{record['iters'] / record['train_s']:.2f} steps/s (train_net, "
+          f"its summaries included); eval {record['eval_s']:.1f} s; "
+          f"{wall:.1f} s from the drill's start to the gate [{card}]")
+    first_eval = {n: (a, k) for n, a, k in reversed(evals)}
+    in_eval = call_counts(evals)
+    return {"overfit train": {k1: kernel_row(
+                card, "overfit train", k1, *steps[-1],
+                launches[k1] - in_eval[k1])},
+            "overfit eval": {name: kernel_row(
+                card, "overfit eval", name, *first_eval[name], in_eval[name])
+                for name in kernel_pairs()}}
+
+
+def phase_rehearsal(card, dev, errors):
+    """Phase 15 (docstring): tools.coco_rehearsal in a subprocess at its
+    defaults, then its snapshot through test_net in process under the lg
+    cfg; returns the kernels' rows on that eval's path."""
+    import tempfile
+    import torch
+    from tf_faster_rcnn_torch.config import (cfg_from_file, cfg_from_list,
+                                             reset_cfg)
+    from tf_faster_rcnn_torch.datasets.factory import get_imdb
+    from tf_faster_rcnn_torch.engine.test_engine import test_net
+    from tf_faster_rcnn_torch.models.network import FasterRCNN, spec_from_cfg
+    from tf_faster_rcnn_torch.ops import nms_kernels as K
+    from tf_faster_rcnn_torch.tools.recipes import recipe
+    from tf_faster_rcnn_torch.tools.test_faster_rcnn import newest_snapshot
+    from tf_faster_rcnn_torch.tools.test_net import load_model_params
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as tmp:
+        wd = os.path.join(tmp, "wd")
+        log = os.path.join(tmp, "rehearsal.log")
+        with open(log, "w") as f:
+            proc = subprocess.run(
+                [sys.executable, "-m",
+                 "tf_faster_rcnn_torch.tools.coco_rehearsal",
+                 "--workdir", wd], cwd=root, env=CALLER_ENV, stdout=f,
+                stderr=subprocess.STDOUT)
+        with open(log) as f:
+            lines = f.read().splitlines()
+        for ln in lines:
+            if ln.startswith("[rehearsal]") or ln.startswith("speed:"):
+                print("  " + ln)
+        if proc.returncode:
+            print("\n".join(lines[-80:]))
+            raise AssertionError(f"coco_rehearsal exited {proc.returncode}")
+        with open(os.path.join(wd, "rehearsal.json")) as f:
+            rec = json.load(f)
+        print(f"time rehearsal: res101 from scratch, {rec['steps']} steps "
+              f"(B=8, f32) at {rec['train_ms_per_step']} ms a step (the "
+              f"loop's mean); AP@[0.5:0.95] res101.yml {rec['ap_600']:.4f}, "
+              f"res101-lg.yml {rec['ap_lg']:.4f} (gate {rec['gate']}); the "
+              f"train driver {rec['train_driver_s']:.1f} s (its chained eval "
+              f"included), the lg test driver {rec['lg_driver_s']:.1f} s "
+              f"[{card}]")
+        if not rec["ok"] or min(rec["ap_600"], rec["ap_lg"]) < rec["gate"]:
+            raise AssertionError("coco_rehearsal: below its gate")
+
+        r = recipe("coco")
+        reset_cfg()
+        cfg_from_file(os.path.join(root, REHEARSAL_LG_CFG))
+        cfg_from_list(["ANCHOR_SCALES", r.scales, "ANCHOR_RATIOS", r.ratios,
+                       "DATA_DIR", wd, "ROOT_DIR", wd,
+                       "TPU.IMS_PER_DEVICE", str(BATCH)])
+        calls = []
+        try:
+            snap = newest_snapshot(os.path.join(
+                wd, "output", "res101", r.train_imdb, "rehearsal"), "res101")
+            imdb = get_imdb(r.test_imdb)
+            spec = spec_from_cfg("res101", imdb.num_classes, "TEST")
+            pre, post = spec.rpn_pre_nms_top_n, spec.rpn_post_nms_top_n
+            model = FasterRCNN(spec).eval()
+            load_model_params(model, snap, "res101")
+            K.reset_launch_counts()
+            with nms_route(log=calls):
+                ap, _ = quiet(lambda: test_net(
+                    model, spec, imdb, "chip_smoke",
+                    output_dir=os.path.join(tmp, "lg")))
+            torch.cuda.synchronize()
+            launches = K.launch_counts()
+        finally:
+            reset_cfg()
+    shapes = {(n, tuple(a[0].shape), k.get("max_keep")) for n, a, k in calls}
+    print(f"rehearsal lg eval in process: {os.path.basename(snap)}, "
+          f"{imdb.num_images} minival images, AP@[0.5:0.95] {ap:.4f} (the "
+          f"driver's {rec['ap_lg']:.4f}); launches {launches}; calls "
+          f"{sorted(shapes, key=str)}")
+    want = {("nms_keep_mask_batched", (BATCH, pre, 4), post),
+            ("batched_nms_keep", (BATCH * (imdb.num_classes - 1), post, 4),
+             None)}
+    if (not want <= shapes or launches != call_counts(calls)
+            or not 0.0 <= ap <= 1.0):
+        raise AssertionError("rehearsal lg eval: shapes, launches or AP")
+    for name, args, kwargs in calls:
+        kernel, plain = kernel_pairs()[name]
+        check_equal(errors, name, kernel(*args, **kwargs),
+                    plain(*args, **kwargs),
+                    f"rehearsal lg eval {tuple(args[0].shape)} {kwargs}")
+    rows = {}
+    for name in kernel_pairs():
+        args, kwargs = next((a, k) for n, a, k in calls if n == name)
+        rows[name] = kernel_row(card, "rehearsal lg eval", name, args,
+                                kwargs, launches[name])
+    print(f"phase rehearsal: {time.perf_counter() - t0:.1f} s")
+    return {"rehearsal lg eval": rows}
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "tf_faster_rcnn_torch")):
@@ -2183,20 +2436,24 @@ def main():
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
+    start = time.perf_counter()
     card = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     errors = phase_kernels(dev)
+    print(f"phases 1-3: {time.perf_counter() - start:.1f} s")
     spec, model, detect, inputs = build_main_path(dev)
     launches, captured, f32_det = phase_main_path(spec, model, detect, inputs,
                                                   errors)
     times = phase_times(card, model, detect, inputs, captured)
+    print(f"phases 1-5: {time.perf_counter() - start:.1f} s")
     del model, detect, inputs, captured
     spec, state, step, batch = build_train_path(dev)
     _, train_k1 = phase_train_path(card, spec, state, step, batch, errors)
     train_row, train_ms = phase_train_times(card, state, step, batch,
                                             train_k1)
     paths = {"train f32": {"nms_keep_mask_batched": train_row}}
+    print(f"phases 1-6: {time.perf_counter() - start:.1f} s")
     del state, step, batch
     torch.cuda.empty_cache()
 
@@ -2220,6 +2477,9 @@ def main():
     paths["eval f32"] = phase_eval(card, dev, errors)
     paths.update(phase_train_loop(card, dev, errors, train_ms))
     paths["serve f32"] = phase_serve(card, dev, errors)
+    paths.update(phase_from_scratch(card, dev, errors))
+    paths.update(phase_rehearsal(card, dev, errors))
+    print(f"phases 1-15: {time.perf_counter() - start:.1f} s")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,

@@ -38,7 +38,7 @@ from tf_faster_rcnn_tpu.utils import slim_import as jslim
 from tf_faster_rcnn_tpu.utils import tf_bundle as jbundle
 from tf_faster_rcnn_torch import config as tconfig
 from tf_faster_rcnn_torch.models import network as tnet
-from tf_faster_rcnn_torch.models.init import init_model
+from tf_faster_rcnn_torch.models.init import init_model, reference_init
 from tf_faster_rcnn_torch.tools import convert_weights as tconvert
 from tf_faster_rcnn_torch.tools import test_net as ttest_net
 from tf_faster_rcnn_torch.utils import checkpoint as tckpt
@@ -346,7 +346,7 @@ def test_convert_weights_cli_ckpt_and_npz(mixed_ckpt, tmp_path):
     """A mobile var dict (backbone only, as an ImageNet checkpoint) in a
     .ckpt that TensorFlow wrote and in an .npz: the CLI converts both to
     the same .pt, equal to the JAX converter's backbone; the detection
-    heads are the RNG_SEED draw."""
+    heads are the RNG_SEED draw of the JAX package's initializers."""
     prefix = mixed_ckpt[0]
     params, var = _mobile_backbone_var()
     np.savez(tmp_path / "mobile.npz", **var)
@@ -361,7 +361,8 @@ def test_convert_weights_cli_ckpt_and_npz(mixed_ckpt, tmp_path):
     tconfig.cfg_from_list(MOBILE_SET)
     seeded = tnet.FasterRCNN(tnet.spec_from_cfg("mobile", 21, "TEST"),
                              device="cpu")
-    init_model(seeded, torch.Generator().manual_seed(tconfig.cfg.RNG_SEED))
+    reference_init(seeded,
+                   torch.Generator().manual_seed(tconfig.cfg.RNG_SEED))
     seeded = seeded.state_dict()
     for name in outs[0]:
         assert torch.equal(outs[0][name], outs[1][name]), name

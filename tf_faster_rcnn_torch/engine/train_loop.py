@@ -47,7 +47,7 @@ from tf_faster_rcnn_torch.data.roidb import filter_roidb, prepare_roidb
 from tf_faster_rcnn_torch.engine.losses import detection_losses
 from tf_faster_rcnn_torch.engine.train import (create_train_state,
                                                make_train_step, scale_recipe)
-from tf_faster_rcnn_torch.models.init import init_model
+from tf_faster_rcnn_torch.models.init import reference_init
 from tf_faster_rcnn_torch.models.network import (DTYPES, FasterRCNN,
                                                  spec_from_cfg)
 from tf_faster_rcnn_torch.utils import checkpoint as ckpt
@@ -86,10 +86,11 @@ class SolverWrapper(object):
                                   "TRAIN")
         self.model = FasterRCNN(self.spec, device=self.device)
         self.batch_size = b = int(cfg.TPU.IMS_PER_DEVICE)
-        # the smoke recipe of models/init.py gives every tensor a value;
-        # a checkpoint then overwrites what it holds (an ImageNet one lacks
-        # the detection heads, which keep the recipe's draw)
-        init_model(self.model, torch.Generator().manual_seed(cfg.RNG_SEED))
+        # the JAX package's initializers give every tensor a value; a
+        # checkpoint then overwrites what it holds (an ImageNet one lacks
+        # the detection heads, which keep this draw)
+        reference_init(self.model,
+                       torch.Generator().manual_seed(cfg.RNG_SEED))
         if self.pretrained_model:
             from tf_faster_rcnn_torch.utils.slim_import import \
                 load_pretrained_into
@@ -122,9 +123,6 @@ class SolverWrapper(object):
     def _warn_random_init(self):
         """The JAX loop's warnings for a run without pretrained weights: a
         frozen prefix never leaves its random state."""
-        print("No pretrained weights: the parameters are models/init.py's "
-              "seeded recipe (the JAX package's from-scratch inits are not "
-              "ported yet; ROADMAP.md, Queue A: from-scratch inits)")
         for match, knob, n in (
                 ("res", "RESNET.FIXED_BLOCKS", self.spec.fixed_blocks),
                 ("mobile", "MOBILENET.FIXED_LAYERS", self.spec.fixed_layers)):

@@ -64,6 +64,9 @@ class ModelSpec:
     pooling_size: int = 7
     resnet_max_pool: bool = False
     depth_multiplier: float = 1.0  # MOBILENET.DEPTH_MULTIPLIER
+    # TRAIN.TRUNCATED: the RPN and class heads' init draws truncated
+    # normals (models/init.py::reference_init)
+    truncated: bool = False
     compute_dtype: str = "float32"  # TPU.COMPUTE_DTYPE
     rpn_pre_nms_top_n: int = 6000
     rpn_post_nms_top_n: int = 300
@@ -132,6 +135,7 @@ def spec_from_cfg(backbone: str, num_classes: int, mode: str) -> ModelSpec:
         pooling_size=int(cfg.POOLING_SIZE),
         resnet_max_pool=bool(cfg.RESNET.MAX_POOL),
         depth_multiplier=float(cfg.MOBILENET.DEPTH_MULTIPLIER),
+        truncated=bool(cfg.TRAIN.TRUNCATED),
         compute_dtype=str(cfg.TPU.COMPUTE_DTYPE),
         rpn_pre_nms_top_n=pre,
         rpn_post_nms_top_n=int(phase.RPN_POST_NMS_TOP_N),

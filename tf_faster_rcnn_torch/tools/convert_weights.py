@@ -10,7 +10,8 @@ The port's counterpart of ``tools/convert_weights.py``. --src is a TF
 TensorFlow needed) or a slim var dict (.npz or .pkl); it goes through the
 surgery of ``utils/slim_import.py`` into a TEST model whose other tensors
 (the detection heads of an ImageNet checkpoint) are drawn from RNG_SEED
-(``models/init.py``), and is written with ``utils/checkpoint.py::
+by the JAX package's initializers (``models/init.py::reference_init``), and
+is written with ``utils/checkpoint.py::
 save_params`` as a ``.pt`` that ``tools.test_net --model`` reads. The model
 is built on ``--device`` (default ``cuda``); the draw comes from a CPU
 generator, so the ``.pt`` is the same on any device.
@@ -21,7 +22,7 @@ import argparse
 import torch
 
 from tf_faster_rcnn_torch.config import cfg, cfg_from_file, cfg_from_list
-from tf_faster_rcnn_torch.models.init import init_model
+from tf_faster_rcnn_torch.models.init import reference_init
 from tf_faster_rcnn_torch.models.network import FasterRCNN, spec_from_cfg
 from tf_faster_rcnn_torch.utils.checkpoint import save_params
 from tf_faster_rcnn_torch.utils.slim_import import load_pretrained_into
@@ -54,7 +55,7 @@ def main(argv=None):
         cfg_from_list(args.set_cfgs)
     spec = spec_from_cfg(args.net, args.num_classes, 'TEST')
     model = FasterRCNN(spec, device=args.device)
-    init_model(model, torch.Generator().manual_seed(cfg.RNG_SEED))
+    reference_init(model, torch.Generator().manual_seed(cfg.RNG_SEED))
     load_pretrained_into(model, args.src, args.net)
     save_params(args.dst, model)
     print(f'Wrote {args.dst}')

@@ -9,12 +9,13 @@ The flags of ``tools/test_net.py`` (--cfg --model --imdb --comp --num_dets
 --tag --net --set), run on one device: ``--device`` (default ``cuda``; the
 tests pass ``cpu``). --model is the port's ``save_params`` file (``.pt``), a
 ``.msgpack`` that the JAX package wrote (its ``save_params`` export or a
-training snapshot), or, as the JAX CLI takes them, a TF ``.ckpt`` bundle
-prefix or a slim var dict (``.npz``/``.pkl``) through the slim import
-(``utils/slim_import.py``; what it lacks keeps the RNG_SEED draw). Without
-it the weights are drawn from RNG_SEED (``models/init.py``), as the
-reference tests with random weights. TF32 is
-off: a float32 compute dtype runs float32 convolutions.
+training snapshot), a training snapshot of the port (``*_iter_N.pt``),
+or, as the JAX CLI takes them, a TF ``.ckpt`` bundle prefix or a slim var
+dict (``.npz``/``.pkl``) through the slim import (``utils/slim_import.py``;
+what it lacks keeps the RNG_SEED draw). Without it the weights are drawn
+from RNG_SEED by the JAX package's initializers
+(``models/init.py::reference_init``), as the reference tests with random
+weights. TF32 is off: a float32 compute dtype runs float32 convolutions.
 """
 
 import argparse
@@ -26,7 +27,7 @@ import torch
 from tf_faster_rcnn_torch.config import cfg, cfg_from_file, cfg_from_list
 from tf_faster_rcnn_torch.datasets.factory import get_imdb
 from tf_faster_rcnn_torch.engine.test_engine import test_net
-from tf_faster_rcnn_torch.models.init import init_model
+from tf_faster_rcnn_torch.models.init import reference_init
 from tf_faster_rcnn_torch.models.network import FasterRCNN, spec_from_cfg
 from tf_faster_rcnn_torch.utils.checkpoint import load_params
 from tf_faster_rcnn_torch.utils.slim_import import load_pretrained_into
@@ -39,9 +40,10 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser(description='Test a Faster R-CNN network')
     parser.add_argument('--cfg', dest='cfg_file', default=None)
     parser.add_argument('--model', dest='model', default=None,
-                        help='weights to test: the port\'s .pt, a JAX '
-                             '.msgpack (params or training snapshot), a TF '
-                             '.ckpt prefix or a slim var dict (.npz/.pkl)')
+                        help='weights to test: the port\'s .pt (params '
+                             'or training snapshot), a JAX .msgpack (params '
+                             'or training snapshot), a TF .ckpt prefix or a '
+                             'slim var dict (.npz/.pkl)')
     parser.add_argument('--imdb', dest='imdb_name', default='voc_2007_test')
     parser.add_argument('--comp', dest='comp_mode', action='store_true',
                         help='competition mode')
@@ -61,20 +63,22 @@ def parse_args(argv=None):
 
 def load_model_params(model, model_path, net):
     """Load the weights at model_path into model, in place: None draws them
-    from RNG_SEED (models/init.py), as the reference tests with random
-    weights; a TF ``.ckpt`` prefix or a slim var dict (``.npz``/``.pkl``)
-    goes through the slim import over that draw (what it lacks keeps the
-    draw); a ``.pt`` of save_params or a JAX ``.msgpack`` (params or
-    training snapshot) must hold every tensor. The counterpart of the JAX
+    from RNG_SEED (models/init.py::reference_init, the JAX package's
+    initializers), as the reference tests with random weights; a TF
+    ``.ckpt`` prefix or a slim var dict (``.npz``/``.pkl``) goes through the
+    slim import over that draw (what it lacks keeps the draw); a ``.pt``
+    (save_params, or a training snapshot of the port) or a JAX
+    ``.msgpack`` (params or training snapshot) must hold every tensor. The
+    counterpart of the JAX
     ``tools/test_net.py::load_model_params``; export_model and demo call it
     too."""
     if model_path is None:
         print('No model given, testing with random initialization '
               '(reference behavior, test_net.py:116-118)')
-        init_model(model, torch.Generator().manual_seed(cfg.RNG_SEED))
+        reference_init(model, torch.Generator().manual_seed(cfg.RNG_SEED))
     elif is_tf_checkpoint(model_path) or model_path.endswith(('.npz',
                                                               '.pkl')):
-        init_model(model, torch.Generator().manual_seed(cfg.RNG_SEED))
+        reference_init(model, torch.Generator().manual_seed(cfg.RNG_SEED))
         load_pretrained_into(model, model_path, net)
     else:
         model.load_state_dict(load_params(model_path), strict=True)

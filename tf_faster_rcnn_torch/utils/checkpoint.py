@@ -25,9 +25,10 @@ snapshots (train_val.py:221-240) and resumes from the newest (:155-175).
 
 Parameter files: ``save_params`` writes a model's
 state_dict with ``torch.save`` (a ``.pt`` file). ``load_params`` reads that,
-or a ``.msgpack`` file that the JAX package wrote: its ``save_params``
-export, or a training snapshot, of which it takes the ``params`` subtree.
-Either way it returns a state_dict of CPU tensors for ``load_state_dict``.
+a training snapshot's ``.pt`` (its ``state["params"]``), or a ``.msgpack``
+file that the JAX package wrote: its ``save_params`` export, or a training
+snapshot, of which it takes the ``params`` subtree. Either way it returns a
+state_dict of CPU tensors for ``load_state_dict``.
 
 The msgpack is decoded here, with ``msgpack`` imported when called and
 without flax: flax writes each array as an extension record (type 1, or 3
@@ -73,7 +74,8 @@ def save_params(path, params):
 
 def load_params(path) -> dict:
     """The state_dict in path: a ``.msgpack`` of the JAX package (bare
-    params or a training snapshot), bridged; any other file as
+    params or a training snapshot), bridged; a training snapshot of the
+    port (``snapshot``'s ``.pt``), its parameters; any other file as
     ``save_params`` wrote it."""
     if str(path).endswith(".msgpack"):
         with open(path, "rb") as f:
@@ -82,7 +84,10 @@ def load_params(path) -> dict:
                                        "step"} <= set(tree):
             tree = tree["params"]
         return state_dict_from_flax(tree)
-    return torch.load(path, map_location="cpu", weights_only=True)
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    if set(saved) == {"state", "generator"}:
+        return saved["state"]["params"]
+    return saved
 
 
 def check_backend():
