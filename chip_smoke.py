@@ -141,11 +141,40 @@ Phases, in order; any failure raises and the exit code is nonzero:
    res101-lg.yml: K1 at [8, 6000] -> 1000 and K2 at [640, 1000] once a
    batch, each equal to its plain version on every call. Times: ms a
    step (the loop's own mean), the drivers' wall times, the kernels on the
-   lg eval path.
+   lg eval path;
+16. data parallel (parallel/, the 'data' axis): (a) phase 6's train step
+   (its builder, a fresh seeded state, its batch, one noise draw) through
+   make_train_step(mesh=) over an NCCL group of one rank (a TCP store on
+   localhost), against the plain step under torch's deterministic
+   algorithms: the losses and every parameter within 1e-6 relative; both
+   steps' times, whose difference is the reduce through NCCL. (b) two
+   processes (dp_worker) sharing cuda:0 over gloo (NCCL refuses two ranks
+   on one device), the global batch of 8 split 4 + 4, each rank on its
+   rows of the same global noise: one step against (a)'s plain step under
+   deterministic algorithms, the losses within 1e-5 relative, the momentum
+   after the step (the gradients) within 1e-4 of its largest and equal on
+   both ranks, the sampled RoI and anchor labels equal (a flip is counted
+   and fails); K1 once a rank a step at [4, 12000] -> 2000, equal to its
+   plain version on each rank's inputs; two more steps timed, with the
+   gradient reduce timed apart, and the train loop's host agreements on
+   the gloo host group (the preemption flags' all_gather, a barrier) timed
+   alone. (c) in the same processes, test_net over
+   phase 11's tree striped over the two ranks: at phase 11's
+   IMS_PER_DEVICE 8 the merged detections.pkl equal to phase 11's and the
+   same mAP; at IMS_PER_DEVICE 4 equal to one process's at 4 (run here),
+   the same mAP, the difference from phase 11's (another batch, other
+   cuDNN algorithms) printed; every image detected, the mAP on rank 0
+   only, K1 and K2 equal to their plain versions on each rank's calls;
+   images/s of the two ranks together, and each rank's seconds in host
+   agreements (the run token's broadcast, the barriers). The ranks import no module of JAX
+   or the JAX package. (d) tools.trainval_net --devices (one more than the
+   GPUs) exits nonzero naming the GPU count.
 
 Each phase from 7 on prints its wall time. The kernel line gives, beside
 each kernel's main-path fields (phase 4), its launches, graph-replay time,
-plain time and bound on each other path's own inputs ("paths").
+plain time and bound on each other path's own inputs ("paths"; for the
+two-rank paths of phase 16, rank 0's inputs and launches, with each rank's
+launches in "rank_launches").
 
 The line before the last is one JSON object describing the kernels; the last
 is {"ok": true, "device": {...}}. TF32 is off in every phase: a float32
@@ -245,6 +274,16 @@ INIT_STD = (0.05, 20.0)
 OVERFIT_KEEP = (48, 32)
 # phase 15: the rehearsal's second eval config
 REHEARSAL_LG_CFG = "experiments/cfgs/res101-lg.yml"
+DP_RANKS = 2
+DP_LOSSES = ("rpn_cross_entropy", "rpn_loss_box", "cross_entropy", "loss_box",
+             "total_loss")
+DP_NCCL_TOL = 1e-6
+DP_LOSS_TOL = 1e-5
+DP_GRAD_TOL = 1e-4
+DP_ITERS = 5
+DP_STEPS = 2
+DP_EVAL_BATCH = 4
+DP_TIMEOUT_S = 600
 REPLACES = {
     "nms_keep_mask_batched": "tf_faster_rcnn_tpu/ops/pallas_nms.py:55",
     "batched_nms_keep": "tf_faster_rcnn_tpu/ops/pallas_nms.py:149",
@@ -795,10 +834,11 @@ def train_batch(dev, seed=SEED):
             "gt_valid": torch.from_numpy(gt_valid).to(dev)}
 
 
-def build_train_path(dev, backbone="res101", extra_cfg=()):
+def build_train_path(dev, backbone="res101", extra_cfg=(), mesh=None):
     """The backbone's train step at its YAML's TRAIN settings and
     extra_cfg, from the entry points a user calls: spec_from_cfg,
-    FasterRCNN, create_train_state, make_train_step."""
+    FasterRCNN, create_train_state, make_train_step (data parallel over
+    mesh, when given)."""
     import torch
     from tf_faster_rcnn_torch.config import cfg, cfg_from_list, reset_cfg
     from tf_faster_rcnn_torch.engine.train import (create_train_state,
@@ -818,7 +858,7 @@ def build_train_path(dev, backbone="res101", extra_cfg=()):
         bias_decay=bool(cfg.TRAIN.BIAS_DECAY),
         mobile_weight_decay=float(cfg.MOBILENET.WEIGHT_DECAY),
         regu_depth=bool(cfg.MOBILENET.REGU_DEPTH), lr_fn=state.tx.lr_fn,
-        nan_guard=bool(cfg.TPU.NAN_GUARD))
+        nan_guard=bool(cfg.TPU.NAN_GUARD), mesh=mesh)
     reset_cfg()
     return spec, state, step, train_batch(dev)
 
@@ -1228,7 +1268,8 @@ def equal_all_boxes(a, b):
 
 def phase_eval(card, dev, errors):
     """Phase 11 (docstring): test_net and reval over a VOC tree on the
-    card, in process and through the CLIs; returns the kernels' rows."""
+    card, in process and through the CLIs; returns the kernels' rows, and
+    the in-process run's all_boxes and mAP (phase 16's reference)."""
     import tempfile
     import torch
     from tf_faster_rcnn_torch.config import (cfg, cfg_from_file,
@@ -1242,7 +1283,8 @@ def phase_eval(card, dev, errors):
         cfg_from_file(os.path.join(root, EVAL_CFG_FILE))
         cfg_from_list(settings)
         try:
-            rows, model, all_boxes = eval_in_process(card, dev, errors, tmp)
+            rows, model, all_boxes, mean_ap = eval_in_process(card, dev,
+                                                              errors, tmp)
             weights = os.path.join(tmp, EVAL_WEIGHTS)
             from tf_faster_rcnn_torch.utils.checkpoint import save_params
             save_params(weights, model)
@@ -1253,7 +1295,7 @@ def phase_eval(card, dev, errors):
         finally:
             reset_cfg()
     print(f"phase eval f32: {time.perf_counter() - t0:.1f} s")
-    return rows
+    return rows, (all_boxes, mean_ap)
 
 
 def eval_in_process(card, dev, errors, tmp):
@@ -1262,7 +1304,8 @@ def eval_in_process(card, dev, errors, tmp):
     versions on the path's own inputs, the first batch's card canvases
     against CPU-built ones and its detections against make_detect_fn's,
     detections.pkl, mAP, ground truth scoring 1.0; then a second, timed
-    run. Returns (the kernels' rows, the model, the run's all_boxes)."""
+    run. Returns (the kernels' rows, the model, the run's all_boxes and
+    mAP)."""
     import torch
     from tf_faster_rcnn_torch.config import bucket_index, canvas_buckets, cfg
     from tf_faster_rcnn_torch.data.blob import image_size, read_image_bgr
@@ -1390,7 +1433,7 @@ def eval_in_process(card, dev, errors, tmp):
         args, kwargs = next((a, k) for nm, a, k in calls if nm == name)
         rows[name] = kernel_row(card, "eval f32", name, args, kwargs,
                                 launches[name])
-    return rows, model, all_boxes
+    return rows, model, all_boxes, mean_ap
 
 
 def eval_cli(root, tmp, weights, settings, all_boxes, nms_thresh):
@@ -2424,6 +2467,514 @@ def phase_rehearsal(card, dev, errors):
     return {"rehearsal lg eval": rows}
 
 
+def moved(args, device):
+    """The tensors of a call's positional arguments on device."""
+    import torch
+    return [a.to(device) if torch.is_tensor(a) else a for a in args]
+
+
+def phase_data_parallel(card, dev, errors, eval_ref):
+    """Phase 16 (docstring): the data-parallel step through NCCL at one
+    rank, then two ranks sharing the card over gloo for a train step and
+    a striped eval, then --devices above the GPU count; returns the
+    kernels' rows of the two-rank paths."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        reference = dp_one_rank(card, dev, tmp)
+        torch.cuda.empty_cache()
+        write_eval_tree(tmp)
+        results = dp_spawn(tmp)
+        rows = {"train dp2": dp_train_checks(card, dev, errors, reference,
+                                             results, tmp),
+                "eval dp2": dp_eval_checks(card, dev, errors, eval_ref,
+                                           results, tmp)}
+    dp_too_many_devices()
+    print(f"phase data parallel: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def dp_one_rank(card, dev, tmp):
+    """16a: phase 6's train step (a fresh state from its seed, its batch,
+    one noise draw) once plain and once through the data-parallel step
+    over an NCCL group of one rank, both under torch's deterministic
+    algorithms: the losses and every parameter equal within DP_NCCL_TOL
+    relative; then both steps' times. Saves the plain step's reference for
+    16b in tmp (the noise, the global losses, the momentum after the step,
+    the sampled labels) and returns it."""
+    import torch
+    from tf_faster_rcnn_torch.models.network import draw_noise
+    from tf_faster_rcnn_torch.parallel import dist
+    from tf_faster_rcnn_torch.parallel.launch import free_port
+    from tf_faster_rcnn_torch.parallel.mesh import make_mesh
+    spec, state, step, batch = build_train_path(dev)
+    fh, fw = CANVAS[0] // spec.feat_stride, CANVAS[1] // spec.feat_stride
+    noise = draw_noise(torch.Generator(device=dev).manual_seed(SEED + 16),
+                       BATCH, fh * fw * spec.num_anchors,
+                       spec.rpn_post_nms_top_n, dev)
+    dist.initialize(f"localhost:{free_port()}", 1, 0, backend="nccl",
+                    device=dev)
+    try:
+        mesh = make_mesh()
+        _, dp_state, dp_step, _ = build_train_path(dev, mesh=mesh)
+        dp_state.load_state_dict(state.state_dict())
+        torch.use_deterministic_algorithms(True)
+        try:
+            runs = {}
+            for label, st, fn in (("plain", state, step),
+                                  ("nccl", dp_state, dp_step)):
+                outs = {}
+                with record_outputs(outs):
+                    _, m = fn(st, batch, noise=noise)
+                torch.cuda.synchronize()
+                runs[label] = ({k: float(v) for k, v in m.items()}, {
+                    n: p.detach().clone()
+                    for n, p in st.model.named_parameters()}, outs)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        (pm, pp, po), (nm, np_, _) = runs["plain"], runs["nccl"]
+        loss_err = max(abs(nm[k] - pm[k]) / max(abs(pm[k]), 1e-30)
+                       for k in DP_LOSSES)
+        param_err = max(float((np_[n] - pp[n]).abs().max())
+                        / max(float(pp[n].abs().max()), 1e-30) for n in pp)
+        print(f"data parallel, NCCL at one rank (deterministic "
+              f"algorithms): losses max rel {loss_err:.2e}, parameters max "
+              f"rel {param_err:.2e} (tol {DP_NCCL_TOL:g}); "
+              f"{ {k: round(nm[k], 6) for k in DP_LOSSES} }")
+        if loss_err > DP_NCCL_TOL or param_err > DP_NCCL_TOL:
+            raise AssertionError("the NCCL data-parallel step differs from "
+                                 "the plain step")
+        reference = {
+            "noise": tuple(t.cpu() for t in noise[:4]), "metrics": pm,
+            "trace": {k: v.cpu() for k, v in state.trace.items()},
+            "roi_labels": po["proposal_target"].labels.cpu(),
+            "anchor_labels": po["anchor_target"].labels.cpu()}
+        plain_ms = timed(lambda: step(state, batch), iters=DP_ITERS)
+        nccl_ms = timed(lambda: dp_step(dp_state, batch), iters=DP_ITERS)
+        print(f"time data parallel NCCL one rank: plain step "
+              f"{plain_ms:.3f} ms, data-parallel step {nccl_ms:.3f} ms, the "
+              f"reduce's cost {nccl_ms - plain_ms:.3f} ms (res101 f32, "
+              f"B={BATCH}, mean of {DP_ITERS}) [{card}]")
+    finally:
+        dist.shutdown()
+    torch.save(reference["noise"], os.path.join(tmp, "noise.pt"))
+    del state, step, dp_state, dp_step, batch, runs
+    return reference
+
+
+def dp_spawn(tmp):
+    """16b-16c: DP_RANKS processes (dp_worker) sharing the card over gloo;
+    each must exit 0 within DP_TIMEOUT_S (both are stopped otherwise).
+    Returns their results, by rank."""
+    from tf_faster_rcnn_torch.parallel.launch import free_port
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    procs, logs = [], []
+    for rank in range(DP_RANKS):
+        log = open(os.path.join(tmp, f"rank{rank}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.dp_worker("
+             f"{rank}, {DP_RANKS}, {port}, {tmp!r})"],
+            cwd=root, env=dict(os.environ), stdout=log,
+            stderr=subprocess.STDOUT))
+    deadline = time.time() + DP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    for rank in range(DP_RANKS):
+        with open(os.path.join(tmp, f"rank{rank}.log")) as f:
+            lines = f.read().splitlines()
+        keep = lines if rank in failed else [
+            ln for ln in lines if ln.startswith("rank")]
+        for ln in keep[-60:]:
+            print(f"  [rank {rank}] {ln}")
+    if failed:
+        raise AssertionError(f"data-parallel ranks {failed} failed (exit "
+                             f"codes {[p.returncode for p in procs]})")
+    results = [load_pickle(os.path.join(tmp, f"rank{rank}.pkl"))
+               for rank in range(DP_RANKS)]
+    imported = [res["jax"] for res in results]
+    print(f"data parallel ranks: modules of JAX or the JAX package "
+          f"imported: {imported}")
+    if any(imported):
+        raise AssertionError("a rank imported JAX or the JAX package")
+    return results
+
+
+@contextlib.contextmanager
+def timed_agreements(record):
+    """parallel.dist's host agreements (barrier, broadcast_object,
+    any_process), each call's seconds on the host clock appended to
+    record[name] while the context is open; the engine and the loop call
+    them through the module, so they see the timed ones."""
+    from tf_faster_rcnn_torch.parallel import dist
+    plain = {n: getattr(dist, n) for n in ("barrier", "broadcast_object",
+                                           "any_process")}
+
+    def timing(name, fn):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                record.setdefault(name, []).append(time.perf_counter() - t)
+        return call
+
+    for name, fn in plain.items():
+        setattr(dist, name, timing(name, fn))
+    try:
+        yield record
+    finally:
+        for name, fn in plain.items():
+            setattr(dist, name, fn)
+
+
+def dp_worker(rank, world, port, tmp):
+    """One rank of 16b-16c, a process of its own on cuda:0 in a gloo group
+    of world ranks: phase 6's train step on its rows of the global batch
+    and noise (one compared step, then DP_STEPS more, timed, with the
+    gradient reduce timed apart), then test_net over the VOC tree in tmp
+    on phase 4's seeded weights, striped over the ranks, at phase 11's
+    TPU.IMS_PER_DEVICE and at DP_EVAL_BATCH (dp_eval_run). Writes its
+    results to tmp/rank{rank}.pkl (and the momentum after the compared step
+    to tmp/trace{rank}.pt)."""
+    import pickle
+    import torch
+    from tf_faster_rcnn_torch.config import cfg
+    from tf_faster_rcnn_torch.engine import train as train_mod
+    from tf_faster_rcnn_torch.models.network import TrainNoise, shard_noise
+    from tf_faster_rcnn_torch.ops import nms_kernels as K
+    from tf_faster_rcnn_torch.parallel import dist
+    from tf_faster_rcnn_torch.parallel.mesh import make_mesh, shard_batch
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.initialize(f"localhost:{port}", world, rank, backend="gloo",
+                    device=dev)
+    out = {"rank": rank}
+    try:
+        mesh = make_mesh()
+        spec, state, step, batch = build_train_path(dev, mesh=mesh)
+        local = shard_batch(mesh, batch)
+        noise = shard_noise(TrainNoise(*(t.to(dev) for t in torch.load(
+            os.path.join(tmp, "noise.pt")))), rank, world)
+        k1, outs = {}, {}
+        K.reset_launch_counts()
+        torch.use_deterministic_algorithms(True)
+        try:
+            with nms_route(record=k1), record_outputs(outs):
+                _, m = step(state, local, noise=noise)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        args, kwargs = k1["nms_keep_mask_batched"]
+        out["train"] = {
+            "metrics": {k: float(v) for k, v in m.items()},
+            "launches": K.launch_counts(),
+            "k1": (moved(args, "cpu"), kwargs),
+            "roi_labels": outs["proposal_target"].labels.cpu(),
+            "anchor_labels": outs["anchor_target"].labels.cpu()}
+        torch.save({k: v.cpu() for k, v in state.trace.items()},
+                   os.path.join(tmp, f"trace{rank}.pt"))
+
+        # DP_STEPS more, with the noise drawn from the state's generator;
+        # the gradient reduce timed on the host clock to a synchronize
+        reduce_s = []
+        plain_reduce = train_mod.all_reduce_buckets
+
+        def timed_reduce(grads, mesh_):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            plain_reduce(grads, mesh_)
+            torch.cuda.synchronize()
+            reduce_s.append(time.perf_counter() - t)
+
+        train_mod.all_reduce_buckets = timed_reduce
+        try:
+            steps = []
+            for _ in range(DP_STEPS):
+                dist.barrier("dp_step")
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                _, m = step(state, local)
+                torch.cuda.synchronize()
+                steps.append(((time.perf_counter() - t),
+                              {k: float(v) for k, v in m.items()}))
+        finally:
+            train_mod.all_reduce_buckets = plain_reduce
+        # the train loop's host agreements, timed apart: the preemption
+        # flags' all_gather (every TRAIN.DISPLAY steps) and the barrier
+        # after a summary or an eval
+        agree = {}
+        with timed_agreements(agree):
+            for _ in range(DP_ITERS):
+                dist.any_process(False)
+                dist.barrier("dp_agree")
+        out["train"]["steps"] = steps
+        out["train"]["reduce_s"] = reduce_s
+        out["train"]["agree_s"] = agree
+        out["train"]["display"] = int(cfg.TRAIN.DISPLAY)
+        out["train"]["launches_all"] = K.launch_counts()
+        print(f"rank {rank}: train steps done, launches "
+              f"{K.launch_counts()}", flush=True)
+        del state, step, batch, local
+        torch.cuda.empty_cache()
+        out["eval"] = {b: dp_eval_run(tmp, b, f"eval_dp2_b{b}")
+                       for b in (BATCH, DP_EVAL_BATCH)}
+        out["jax"] = sorted(
+            name for name in sys.modules
+            if name == "jax" or name.startswith(("jax.",
+                                                 "tf_faster_rcnn_tpu")))
+    finally:
+        dist.shutdown()
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    print(f"rank {rank}: done", flush=True)
+
+
+def dp_eval_run(tmp, batch, name):
+    """test_net over the VOC tree in tmp at TPU.IMS_PER_DEVICE batch on
+    phase 4's seeded weights, into tmp/name (striped over the ranks when a
+    process group is up), its NMS calls logged; each call's kernels
+    against their plain versions here. Returns the run's record."""
+    import torch
+    from tf_faster_rcnn_torch.config import cfg_from_file, cfg_from_list, \
+        reset_cfg
+    from tf_faster_rcnn_torch.datasets.factory import get_imdb
+    from tf_faster_rcnn_torch.engine import test_engine as E
+    from tf_faster_rcnn_torch.models.init import init_model
+    from tf_faster_rcnn_torch.models.network import FasterRCNN, spec_from_cfg
+    from tf_faster_rcnn_torch.ops import nms_kernels as K
+    from tf_faster_rcnn_torch.parallel import dist
+    root = os.path.dirname(os.path.abspath(__file__))
+    reset_cfg()
+    cfg_from_file(os.path.join(root, EVAL_CFG_FILE))
+    cfg_from_list(["TPU.IMS_PER_DEVICE", str(batch), "DATA_DIR", tmp,
+                   "ROOT_DIR", tmp])
+    try:
+        spec = spec_from_cfg("res101", NUM_CLASSES, "TEST")
+        model = FasterRCNN(spec).eval()
+        init_model(model, torch.Generator().manual_seed(SEED))
+        imdb = get_imdb("voc_2007_test")
+        calls = []
+        K.reset_launch_counts()
+        dist.barrier(f"{name}_start")
+        t = time.perf_counter()
+        agree = {}
+        with nms_route(log=calls), timed_agreements(agree):
+            mean_ap, _ = quiet(lambda: E.test_net(
+                model, spec, imdb, name, output_dir=os.path.join(tmp, name)))
+        seconds = time.perf_counter() - t
+        launches = K.launch_counts()
+        err = {n: 0 for n in kernel_pairs()}
+        for n, args, kwargs in calls:
+            kernel, plain = kernel_pairs()[n]
+            quiet(lambda: check_equal(err, n, kernel(*args, **kwargs),
+                                      plain(*args, **kwargs), name))
+        first = {}
+        for n, args, kwargs in calls:
+            first.setdefault(n, (moved(args, "cpu"), kwargs))
+    finally:
+        reset_cfg()
+    print(f"rank {dist.process_index()}: {name} done, {len(calls)} NMS "
+          f"calls, mAP {mean_ap}", flush=True)
+    return {"mAP": mean_ap, "seconds": seconds, "launches": launches,
+            "calls": len(calls), "max_abs_err": err, "first": first,
+            "agree_s": sum(sum(v) for v in agree.values())}
+
+
+def dp_train_checks(card, dev, errors, reference, results, tmp):
+    """16b's checks in this process: each rank's global losses against
+    16a's within DP_LOSS_TOL relative, the momentum after the step (the
+    gradients) within DP_GRAD_TOL of its largest, the ranks' momentum
+    equal, the sampled labels equal to 16a's rows, K1 launched once a step
+    at this rank's [B / ranks, N] and equal to its plain version on its
+    inputs; the times of the steps after; returns rank 0's kernel row."""
+    import torch
+    want = reference["metrics"]
+    traces = [torch.load(os.path.join(tmp, f"trace{r}.pt"))
+              for r in range(DP_RANKS)]
+    scale = max(float(t.abs().max()) for t in reference["trace"].values())
+    grad_err = max(float((traces[0][k] - t).abs().max())
+                   for k, t in reference["trace"].items()) / scale
+    same = all(torch.equal(traces[0][k], traces[r][k])
+               for r in range(1, DP_RANKS) for k in traces[0])
+    per = BATCH // DP_RANKS
+    flips = {}
+    for name in ("roi_labels", "anchor_labels"):
+        got = torch.cat([res["train"][name] for res in results])
+        flips[name] = int((got != reference[name]).sum())
+    rows = []
+    for res in results:
+        tr = res["train"]
+        loss_err = max(abs(tr["metrics"][k] - want[k])
+                       / max(abs(want[k]), 1e-30) for k in DP_LOSSES)
+        args, kwargs = tr["k1"]
+        args = moved(args, dev)
+        n = tuple(args[0].shape)
+        print(f"data parallel rank {res['rank']} of {DP_RANKS} (gloo, "
+              f"cuda:0 shared): losses max rel {loss_err:.2e} (tol "
+              f"{DP_LOSS_TOL:g}); "
+              f"{ {k: round(tr['metrics'][k], 6) for k in DP_LOSSES} }; "
+              f"K1 launches after the step {tr['launches']}, at {n} "
+              f"{kwargs}")
+        if loss_err > DP_LOSS_TOL:
+            raise AssertionError("two-rank losses differ from one rank's")
+        if tr["launches"] != {"nms_keep_mask_batched": 1,
+                              "batched_nms_keep": 0} or \
+                n[0] != per or kwargs["max_keep"] != 2000:
+            raise AssertionError(f"K1 on rank {res['rank']}: "
+                                 f"{tr['launches']} at {n} {kwargs}")
+        check_equal(errors, "nms_keep_mask_batched",
+                    kernel_pairs()["nms_keep_mask_batched"][0](*args,
+                                                               **kwargs),
+                    kernel_pairs()["nms_keep_mask_batched"][1](*args,
+                                                               **kwargs),
+                    f"train dp2 rank {res['rank']} {n} {kwargs}")
+        step_ms = [ms * 1e3 for ms, _ in tr["steps"]]
+        reduce_ms = [s * 1e3 for s in tr["reduce_s"]]
+        print(f"time data parallel train rank {res['rank']}: steps "
+              f"{[round(x, 3) for x in step_ms]} ms (two ranks on one card, "
+              f"B={per} each), gradient reduce "
+              f"{[round(x, 3) for x in reduce_ms]} ms = "
+              f"{sum(reduce_ms) / sum(step_ms):.1%} of the step; losses "
+              f"{[round(m['total_loss'], 6) for _, m in tr['steps']]} "
+              f"[{card}]")
+        agree_ms = {k: 1e3 * sum(v) / len(v) for k, v in tr["agree_s"].items()}
+        share = agree_ms["any_process"] / (tr["display"] * np.mean(step_ms))
+        print(f"time data parallel host agreements rank {res['rank']}: "
+              f"any_process {agree_ms['any_process']:.3f} ms, barrier "
+              f"{agree_ms['barrier']:.3f} ms (gloo host group, mean of "
+              f"{DP_ITERS}); any_process every TRAIN.DISPLAY="
+              f"{tr['display']} steps = {share:.3%} of the step time "
+              f"[{card}]")
+        if not all(np.isfinite(m["total_loss"]) for _, m in tr["steps"]):
+            raise AssertionError("a two-rank step's loss is not finite")
+        rows.append(kernel_row(card, f"train dp2 rank {res['rank']}",
+                               "nms_keep_mask_batched", args, kwargs,
+                               tr["launches_all"]["nms_keep_mask_batched"]))
+    print(f"  momentum after the step (the gradients): max |diff| "
+          f"{grad_err:.2e} of the largest (tol {DP_GRAD_TOL:g}); equal on "
+          f"every rank {same}; labels that differ from one rank's "
+          f"(deterministic algorithms): {flips}")
+    if grad_err > DP_GRAD_TOL or not same or any(flips.values()):
+        raise AssertionError("two-rank gradients or labels differ")
+    row = dict(rows[0])
+    row["rank_launches"] = [r["launches"] for r in rows]
+    return {"nms_keep_mask_batched": row}
+
+
+def boxes_diff(a, b):
+    """(the (class, image) entries of two detections.pkl trees that differ,
+    the largest |difference| of those of one shape)."""
+    differ, worst = 0, 0.0
+    for ra, rb in zip(a[1:], b[1:]):
+        for x, y in zip(ra, rb):
+            x, y = np.asarray(x), np.asarray(y)
+            if x.shape != y.shape:
+                differ += 1
+            elif not np.array_equal(x, y):
+                differ += 1
+                worst = max(worst, float(np.abs(x - y).max()))
+    return differ, worst
+
+
+def dp_eval_checks(card, dev, errors, eval_ref, results, tmp):
+    """16c's checks: at phase 11's batch (TPU.IMS_PER_DEVICE 8 on each
+    rank) the merged detections.pkl equal to phase 11's and the same mAP;
+    at DP_EVAL_BATCH the merged detections equal to one process's at that
+    batch (run here) and the same mAP as phase 11, with the difference from
+    phase 11's detections (another batch, other cuDNN algorithms) printed;
+    in both, every image detected, only rank 0 with the mAP, and each
+    rank's kernels equal to their plain versions on its calls. Times:
+    images/s of the ranks together. Returns the kernels' rows of the
+    DP_EVAL_BATCH run (rank 0's inputs)."""
+    all_boxes, mean_ap = eval_ref
+    one = dp_eval_run(tmp, DP_EVAL_BATCH, "eval_one_process")
+    one_boxes = load_pickle(os.path.join(tmp, "eval_one_process",
+                                         "detections.pkl"))
+    ok = True
+    for batch, want, want_map, label in (
+            (BATCH, all_boxes, mean_ap, "phase 11's"),
+            (DP_EVAL_BATCH, one_boxes, one["mAP"], "one process's")):
+        merged = load_pickle(os.path.join(tmp, f"eval_dp2_b{batch}",
+                                          "detections.pkl"))
+        ev = [res["eval"][batch] for res in results]
+        equal = equal_all_boxes(merged, want)
+        covered = all(isinstance(merged[c][i], np.ndarray)
+                      for c in range(1, NUM_CLASSES)
+                      for i in range(len(merged[1])))
+        n = len(merged[1])
+        seconds = max(e["seconds"] for e in ev)
+        print(f"data parallel eval ({DP_RANKS} ranks on one card, "
+              f"IMS_PER_DEVICE {batch}): mAP {ev[0]['mAP']} ({label} "
+              f"{want_map}, phase 11's {mean_ap}), other ranks "
+              f"{[e['mAP'] for e in ev[1:]]}; merged detections equal to "
+              f"{label} {equal}, every image covered {covered}; launches "
+              f"{[e['launches'] for e in ev]}; kernel errors "
+              f"{[e['max_abs_err'] for e in ev]}")
+        if batch != BATCH:
+            differ, worst = boxes_diff(merged, all_boxes)
+            print(f"  IMS_PER_DEVICE {batch} against phase 11's 8: "
+                  f"{differ} of {(NUM_CLASSES - 1) * n} (class, image) "
+                  f"entries differ, by at most {worst:.3g}")
+        print(f"time data parallel eval IMS_PER_DEVICE {batch}: "
+              f"{seconds:.3f} s for {n} images = {n / seconds:.2f} images/s "
+              f"for the {DP_RANKS} ranks together (decode to mAP; res101 "
+              f"f32, TF32 off); host agreements (barriers, run token) by "
+              f"rank {[round(e['agree_s'], 3) for e in ev]} s = "
+              f"{[round(e['agree_s'] / e['seconds'], 4) for e in ev]} of "
+              f"each rank's eval [{card}]")
+        ok &= (equal and covered and ev[0]["mAP"] == want_map == mean_ap
+               and all(e["mAP"] is None for e in ev[1:])
+               and not any(v for e in ev for v in e["max_abs_err"].values()))
+    if not ok:
+        raise AssertionError("the striped eval differs")
+    print(f"time eval one process IMS_PER_DEVICE {DP_EVAL_BATCH}: "
+          f"{one['seconds']:.3f} s for 64 images [{card}]")
+    rows = {}
+    ev = [res["eval"][DP_EVAL_BATCH] for res in results]
+    for name in kernel_pairs():
+        args, kwargs = ev[0]["first"][name]
+        args = moved(args, dev)
+        check_equal(errors, name, kernel_pairs()[name][0](*args, **kwargs),
+                    kernel_pairs()[name][1](*args, **kwargs),
+                    f"eval dp2 {tuple(args[0].shape)} {kwargs}")
+        rows[name] = kernel_row(card, "eval dp2", name, args, kwargs,
+                                ev[0]["launches"][name])
+        rows[name]["rank_launches"] = [e["launches"][name] for e in ev]
+    return rows
+
+
+def dp_too_many_devices():
+    """16d: tools.trainval_net --devices (one more than the GPUs) exits
+    nonzero with a message that names the GPU count."""
+    import torch
+    root = os.path.dirname(os.path.abspath(__file__))
+    n = torch.cuda.device_count()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tf_faster_rcnn_torch.tools.trainval_net",
+         "--devices", str(n + 1)], cwd=root, env=CALLER_ENV,
+        capture_output=True, text=True, timeout=300)
+    said = (proc.stdout + proc.stderr).strip().splitlines()[-1:]
+    print(f"trainval_net --devices {n + 1} on {n} GPU(s): exit "
+          f"{proc.returncode}, {said}")
+    if proc.returncode == 0 or f"this host has {n}" not in proc.stderr:
+        raise AssertionError("--devices above the GPU count did not fail "
+                             "naming the GPU count")
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "tf_faster_rcnn_torch")):
@@ -2474,12 +3025,14 @@ def main():
     paths["detect top"] = phase_detect_path(
         card, dev, "detect top", replace(spec_main, test_mode="top"), errors,
         batch=TOP_BATCH)
-    paths["eval f32"] = phase_eval(card, dev, errors)
+    paths["eval f32"], eval_ref = phase_eval(card, dev, errors)
     paths.update(phase_train_loop(card, dev, errors, train_ms))
     paths["serve f32"] = phase_serve(card, dev, errors)
     paths.update(phase_from_scratch(card, dev, errors))
     paths.update(phase_rehearsal(card, dev, errors))
     print(f"phases 1-15: {time.perf_counter() - start:.1f} s")
+    paths.update(phase_data_parallel(card, dev, errors, eval_ref))
+    print(f"phases 1-16: {time.perf_counter() - start:.1f} s")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,

@@ -5,7 +5,7 @@
 * ``tools/recipes.py`` holds ``experiments/scripts/recipes.sh``'s table
   (read from bash), its hooks and its tag slug.
 * ``tools/test_faster_rcnn.py`` resolves the newest snapshot by its
-  numeric iteration; the drivers refuse DEVICES above 1.
+  numeric iteration; the drivers refuse DEVICES above the GPU count.
 * ``tools.test_net --model`` takes a training snapshot of the port
   (``*_iter_N.pt``).
 * ``tools.overfit_check --device cpu`` exits 0 at 4 iterations and 2

@@ -144,7 +144,9 @@ def test_smooth_l1_loss_and_its_gradient_match(rng, sigma, dims):
 
     want, want_grad = jax.value_and_grad(jloss)(args[0])
     p = _t(args[0]).requires_grad_(True)
-    got = tlosses.smooth_l1_loss(p, *[_t(x) for x in args[1:]], sigma, dims)
+    rows = int(np.prod([n for d, n in enumerate(pred.shape)
+                        if d not in dims]))
+    got = tlosses.smooth_l1_loss(p, *[_t(x) for x in args[1:]], sigma, rows)
     (grad,) = torch.autograd.grad(got, p)
     _rel_close(got.detach().numpy(), want, 1e-6)
     _rel_close(grad.numpy(), want_grad, 1e-6)

@@ -9,7 +9,9 @@ batch (its orientation bucket, or the union canvas for a mixed batch), one
 scale draw per batch, the crowd-box exclusion under USE_ALL_GT False and the
 TPU.MAX_GT truncation. The iteration state round-trips through
 ``get_state`` / ``set_state`` in the JAX layer's format, so a JAX run's
-cursors continue here.
+cursors continue here. In a multi-process run every process holds that same
+state and decodes only its slice of each global batch (``process_index``,
+``process_count``); the prefetcher wraps the sliced layer.
 
 The work splits in two, as on the eval path: ``next_host_batch`` draws the
 indices and scales and decodes the images into uint8 arrays on the host (no
@@ -35,6 +37,7 @@ from tf_faster_rcnn_torch.config import (bucket_index, canvas_buckets, cfg,
                                          mixed_canvas)
 from tf_faster_rcnn_torch.data.blob import (im_scale, prep_batch,
                                             read_image_bgr, upload)
+from tf_faster_rcnn_torch.parallel.dist import local_slice
 
 __all__ = ["HostBatch", "PrefetchingDataLayer", "RoIDataLayer",
            "decode_minibatch"]
@@ -102,14 +105,25 @@ class RoIDataLayer(object):
     """Fast R-CNN style data layer with checkpointable iteration state."""
 
     def __init__(self, roidb, random=False, batch_size: Optional[int] = None,
-                 device="cuda"):
-        """``batch_size`` images per batch (TRAIN.IMS_PER_BATCH when None).
-        Each batch runs on its orientation bucket's canvas (a batch that
-        mixes orientations on the union canvas). ``random``: a time-seeded
-        shuffle, as the reference's validation layer."""
+                 device="cuda", process_index: int = 0,
+                 process_count: int = 1):
+        """``batch_size`` images per batch (TRAIN.IMS_PER_BATCH when None),
+        the global batch. Each batch runs on its orientation bucket's canvas
+        (a batch that mixes orientations on the union canvas). ``random``: a
+        time-seeded shuffle, as the reference's validation layer.
+
+        process_count > 1 (the JAX layer's process slicing): every process
+        holds the same iteration state and makes every draw at the global
+        batch's size (the permutation, the canvas from the global index
+        list, the scales), and decodes only its contiguous slice of each
+        batch, the process_index-th of process_count; the global batch must
+        divide. A random layer is then seeded from RNG_SEED and its shuffle
+        count instead of the clock, so that every process shuffles alike."""
+        self._batch = batch_size or int(cfg.TRAIN.IMS_PER_BATCH)
+        self._part = local_slice(self._batch, process_index, process_count)
+        self._pcount = int(process_count)
         self._roidb = roidb
         self._random = random
-        self._batch = batch_size or int(cfg.TRAIN.IMS_PER_BATCH)
         self._buckets = canvas_buckets(cfg.TRAIN)
         self._mixed = mixed_canvas(self._buckets)
         self._max_gt = int(cfg.TPU.MAX_GT)
@@ -123,8 +137,13 @@ class RoIDataLayer(object):
         """Permute the roidb, optionally grouping by aspect ratio
         (layer.py:32-62)."""
         if self._random:
-            # time-seeded shuffle for the validation layer (layer.py:37-41)
-            self._rng = np.random.RandomState(int(time.time() * 1000) % 4096)
+            # time-seeded shuffle for the validation layer (layer.py:37-41);
+            # processes of one run must shuffle alike, so not by the clock
+            if self._pcount > 1:
+                seed = (cfg.RNG_SEED + 0x5EED + self._n_shuffles) % (2 ** 31)
+            else:
+                seed = int(time.time() * 1000) % 4096
+            self._rng = np.random.RandomState(seed)
         self._n_shuffles += 1
         if cfg.TRAIN.ASPECT_GROUPING:
             # permute each orientation group, concatenate, shuffle at pair
@@ -167,13 +186,14 @@ class RoIDataLayer(object):
         return self._buckets[ks.pop()] if len(ks) == 1 else self._mixed
 
     def next_host_batch(self) -> HostBatch:
-        """Advance the iteration state by one batch and decode it, on the
-        host only."""
+        """Advance the iteration state by one batch and decode this
+        process's slice of it, on the host only."""
         db_inds = self._get_next_minibatch_inds()
         canvas = self._batch_canvas(db_inds)
         # one batch-sized draw, as the JAX layer makes it
         scales = cfg.TRAIN.SCALES
         scale_inds = self._rng.randint(0, len(scales), size=len(db_inds))
+        db_inds, scale_inds = db_inds[self._part], scale_inds[self._part]
         entries = [self._roidb[int(i)] for i in db_inds]
         return decode_minibatch(entries, canvas, self._max_gt,
                                 [scales[int(i)] for i in scale_inds])

@@ -210,8 +210,8 @@ class pascal_voc(imdb):
         return mean_ap
 
     def _matlab_eval(self, output_dir='output'):
-        wrapper = (Path(cfg.ROOT_DIR) / 'tf_faster_rcnn_tpu' / 'datasets'
-                   / 'VOCdevkit-matlab-wrapper')
+        # the devkit wrapper's .m files, the port's own copy
+        wrapper = Path(__file__).resolve().parent / 'VOCdevkit-matlab-wrapper'
         script = (f"dbstop if error; voc_eval('{self._layout.devkit}',"
                   f"'{self._comp_id()}','{self._image_set}',"
                   f"'{output_dir}'); quit;")

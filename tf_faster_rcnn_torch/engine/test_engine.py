@@ -16,12 +16,21 @@ The main thread uploads each image and builds the batch's canvases on the
 model's device (``data/blob.py``: mean subtraction, resize, canvas write),
 launches the detect step, and copies the detections back: one host sync
 per batch. The host then files them into ``all_boxes``.
+
+In a multi-process run (``parallel/dist.py``) each rank takes the stripe
+``schedule[rank::ranks]`` of the batch schedule on its own device, with no
+device collective. The ranks other than 0 write their detections to part
+files named by rank 0's run token; rank 0 merges them, writes
+``detections.pkl`` and evaluates, and the others return None after the
+closing barrier. The output dir is shared, as for the snapshots.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+import time
+import uuid
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
@@ -33,6 +42,7 @@ from tf_faster_rcnn_torch.config import (bucket_index, canvas_buckets, cfg,
 from tf_faster_rcnn_torch.data.blob import (image_size, prep_batch,
                                             read_image_bgr, upload)
 from tf_faster_rcnn_torch.engine.detect import postprocess_detections
+from tf_faster_rcnn_torch.parallel import dist
 from tf_faster_rcnn_torch.utils.native import nms_cpu
 from tf_faster_rcnn_torch.utils.timer import Timer
 
@@ -123,9 +133,12 @@ def test_net(model, spec, imdb, weights_filename, max_per_image: int = 100,
              timers: Optional[dict] = None):
     """Evaluate a model on an imdb on the model's device; writes
     detections.pkl, runs the dataset's evaluator and returns its result
-    (mAP for VOC, AP for COCO).
+    (mAP for VOC, AP for COCO). In a multi-process run every rank calls it
+    and detects its stripe of the batches (module docstring); rank 0
+    returns the result, the others None.
 
-    batch_size defaults to TPU.IMS_PER_DEVICE. detect_fn defaults to
+    batch_size defaults to TPU.IMS_PER_DEVICE, the images of a batch on
+    each rank. detect_fn defaults to
     make_detect_fn(model, spec, max_per_image, thresh). timers, when given,
     is filled with the 'im_detect' and 'misc' Timers (per batch).
     """
@@ -158,6 +171,14 @@ def test_net(model, spec, imdb, weights_filename, max_per_image: int = 100,
     schedule = [(k, grp[s:s + b])
                 for k, grp in enumerate(groups)
                 for s in range(0, len(grp), b)]
+    pid, pcount = dist.process_index(), dist.process_count()
+    run_token = None
+    if pcount > 1:
+        schedule = schedule[pid::pcount]
+        # rank 0's token names this run's part files, so a rerun into the
+        # same dir can never merge an earlier run's leftovers
+        run_token = dist.broadcast_object(
+            uuid.uuid4().hex[:16] if pid == 0 else None)
 
     # workers decode a bounded window of batches ahead, consumed strictly in
     # schedule order, so one slow decode cannot stall the device behind an
@@ -208,10 +229,56 @@ def test_net(model, spec, imdb, weights_filename, max_per_image: int = 100,
         pool.shutdown(wait=False, cancel_futures=True)
 
     det_file = os.path.join(output_dir, 'detections.pkl')
+    if pcount > 1:
+        all_boxes = _merge_parts(det_file, all_boxes, pid, pcount,
+                                 num_classes, num_images, run_token)
+        if all_boxes is None:
+            # wait out rank 0's merge and evaluation on the host group, so
+            # a caller that goes back to device collectives (the
+            # in-training eval) cannot run ahead of it
+            dist.barrier(f"testnet_{run_token}", timeout_ms=1_800_000)
+            return None
     with open(det_file, 'wb') as f:
         pickle.dump(all_boxes, f, pickle.HIGHEST_PROTOCOL)
     print('Evaluating detections')
-    return imdb.evaluate_detections(all_boxes, output_dir)
+    mean = imdb.evaluate_detections(all_boxes, output_dir)
+    if pcount > 1:
+        dist.barrier(f"testnet_{run_token}", timeout_ms=1_800_000)
+    return mean
+
+
+def _merge_parts(det_file, all_boxes, pid, pcount, num_classes, num_images,
+                 token, timeout_s=900.0):
+    """Ranks other than 0 write their all_boxes to a token-named part file,
+    atomically, and return None; rank 0 waits for every part, merges and
+    removes them, and returns the merged all_boxes. A detected entry is a
+    numpy array (maybe empty), an undetected one the initial []."""
+    def part(p):
+        return f'{det_file}.{token}.part{p}'
+
+    if pid != 0:
+        path = part(pid)
+        with open(path + '.tmp', 'wb') as f:
+            pickle.dump(all_boxes, f, pickle.HIGHEST_PROTOCOL)
+        os.replace(path + '.tmp', path)
+        print(f'wrote {path}')
+        return None
+    parts = [part(p) for p in range(1, pcount)]
+    deadline = time.time() + timeout_s
+    while not all(os.path.exists(p) for p in parts):
+        if time.time() > deadline:
+            missing = [p for p in parts if not os.path.exists(p)]
+            raise RuntimeError(f'eval parts never arrived: {missing}')
+        time.sleep(0.2)
+    for p in parts:
+        with open(p, 'rb') as f:
+            other = pickle.load(f)
+        for c in range(num_classes):
+            for i in range(num_images):
+                if isinstance(other[c][i], np.ndarray):
+                    all_boxes[c][i] = other[c][i]
+        os.unlink(p)
+    return all_boxes
 
 
 def apply_nms(all_boxes, thresh):

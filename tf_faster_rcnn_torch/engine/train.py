@@ -28,6 +28,17 @@ The parameters live in the model; the state holds the rest of what the JAX
 ``TrainState`` holds: the step, the momentum trace, the schedule's count,
 and a ``torch.Generator`` that draws each step's sampling noise (the JAX
 state's key).
+
+Data parallelism (``make_train_step(..., mesh=)``, ``parallel/mesh.py``):
+each rank takes its rows of the global batch and of the global batch's
+noise, and minimizes its share of the global objective: its share of each
+detection loss over the global normalizers (``engine/losses.py``), plus the
+weight decay on the first rank alone, so that it counts once. The gradients
+are then summed over the ranks in a few flat buffers, which is the JAX
+step's single psum: every rank applies the same update, and the NaN guard
+reads the reduced gradients and the global loss, so every rank skips or
+applies alike. ``torch.autograd.grad`` bypasses DDP's reducer hooks, so the
+step reduces the gradients itself.
 """
 
 from __future__ import annotations
@@ -39,9 +50,13 @@ import torch
 from torch import nn
 
 from tf_faster_rcnn_torch.engine.losses import (detection_losses,
+                                                global_losses,
                                                 weight_decay_loss)
 from tf_faster_rcnn_torch.models.network import (DTYPES, ModelSpec,
                                                  TrainNoise)
+from tf_faster_rcnn_torch.parallel.mesh import (all_reduce_buckets,
+                                                data_axis_size, data_index,
+                                                psum)
 
 __all__ = ["Optimizer", "TrainState", "all_finite", "create_train_state",
            "lr_schedule", "make_train_step", "scale_recipe", "train_loss"]
@@ -221,19 +236,29 @@ def train_loss(model: nn.Module, batch: Dict[str, torch.Tensor],
                noise: Optional[TrainNoise] = None,
                generator: Optional[torch.Generator] = None,
                mobile_weight_decay: Optional[float] = None,
-               regu_depth: bool = False):
+               regu_depth: bool = False, mesh=None):
     """The TRAIN forward and its loss: (total, metrics), total with its
     graph, metrics detached (the four losses, regularization_loss and
-    total_loss). The decay arguments are weight_decay_loss's."""
+    total_loss). The decay arguments are weight_decay_loss's.
+
+    mesh: the 'data' mesh (parallel/mesh.py), None for one process. batch
+    is this rank's rows of the global batch (FasterRCNN.forward's shard),
+    total is this rank's share of the global objective (the decay on the
+    rank of index 0 only), and the metrics are the global batch's
+    values."""
+    index = data_index(mesh)
     out = model(batch["image"], batch["im_info"], batch["gt_boxes"],
-                batch["gt_valid"], noise=noise, generator=generator)
-    losses = detection_losses(out)
+                batch["gt_valid"], noise=noise, generator=generator,
+                shard=(index, data_axis_size(mesh)))
+    reduce = psum(mesh)
+    losses = detection_losses(out, reduce)
     reg = weight_decay_loss(model, weight_decay, bias_decay,
                             mobile_weight_decay, regu_depth)
-    total = losses["total_loss"] + reg
-    metrics = {k: v.detach() for k, v in losses.items()}
+    total = losses["total_loss"] + reg if index == 0 else \
+        losses["total_loss"]
+    metrics = global_losses(losses, reduce)
     metrics["regularization_loss"] = reg.detach()
-    metrics["total_loss"] = total.detach()
+    metrics["total_loss"] = metrics["total_loss"] + reg.detach()
     return total, metrics
 
 
@@ -242,7 +267,7 @@ def make_train_step(model: nn.Module, spec: ModelSpec, *,
                     mobile_weight_decay: Optional[float] = None,
                     regu_depth: bool = False,
                     lr_fn: Optional[Callable] = None,
-                    nan_guard: bool = False) -> Callable:
+                    nan_guard: bool = False, mesh=None) -> Callable:
     """Returns ``step(state, batch, noise=None) -> (state, metrics)``.
 
     batch: dict of tensors on the model's device: 'image' [B, H, W, 3],
@@ -257,6 +282,13 @@ def make_train_step(model: nn.Module, spec: ModelSpec, *,
     nan_guard: when the loss or any gradient is not finite, the update is
     skipped whole (the step still advances, the generator still draws) and
     step_skipped is 1.
+
+    mesh: the data-parallel step (module docstring; parallel/mesh.py::
+    make_mesh), even over one rank. batch is then this rank's rows of the
+    global batch, noise (if given) this rank's rows of the global batch's
+    noise (models/network.py::shard_noise), and the metrics are the global
+    batch's. The state must be the same on every rank (parallel/mesh.py::
+    replicate), its generator seeded alike.
     """
     if model.spec != spec or spec.mode != "TRAIN":
         raise ValueError("make_train_step needs a model built from this "
@@ -266,13 +298,15 @@ def make_train_step(model: nn.Module, spec: ModelSpec, *,
              noise: Optional[TrainNoise] = None):
         total, metrics = train_loss(model, batch, weight_decay, bias_decay,
                                     noise, state.generator,
-                                    mobile_weight_decay, regu_depth)
+                                    mobile_weight_decay, regu_depth, mesh)
         params = state.params()
-        grads = dict(zip(params, torch.autograd.grad(total,
-                                                     list(params.values()))))
+        grads = list(torch.autograd.grad(total, list(params.values())))
+        if mesh is not None:
+            all_reduce_buckets(grads, mesh)
+        grads = dict(zip(params, grads))
         finite = None
         if nan_guard:
-            finite = all_finite(total, grads.values())
+            finite = all_finite(metrics["total_loss"], grads.values())
             metrics["step_skipped"] = 1.0 - finite.to(torch.float32)
         if lr_fn is not None:
             metrics["learning_rate"] = lr_fn(state.step)

@@ -1,4 +1,4 @@
-"""The training loop: the SolverWrapper of the reference, on one device.
+"""The training loop: the SolverWrapper of the reference.
 
 Port of ``tf_faster_rcnn_tpu/engine/train_loop.py``. The flow is the
 reference's (lib/model/train_val.py:27-378): filter the roidbs, build the
@@ -26,8 +26,21 @@ their flax paths (``utils/weights.py::flax_from_state_dict``, so runs of both
 packages share tags), and the GT-boxes image. ``TPU.PROFILE_DIR`` writes a
 ``torch.profiler`` trace of five steps.
 
-Not ported: the JAX loop's device mesh and multi-process branches, which
-raise (ROADMAP.md, Queue A: parallelism).
+Data parallelism (the JAX loop's multi-process branches): with a process
+group (``parallel/dist.py``) every rank runs this loop on its own device
+over a 'data' mesh (``parallel/mesh.py``). The global batch is
+TPU.IMS_PER_DEVICE times the ranks, and the schedule is scaled to it; each
+rank's data layer holds the same iteration state and decodes its slice;
+the step reduces the losses' normalizers and the gradients
+(``engine/train.py``). Only the coordinator (rank 0) writes snapshots,
+metrics, TensorBoard events and the best parameters, and every rank
+restores the same snapshot, which holds nothing of a rank, so a run
+resumes on another number of ranks. The summary is triggered by the
+iteration count (TPU.SUMMARY_ITERS), not each host's clock, and its val
+losses are the global batch's; a SIGTERM is agreed every TRAIN.DISPLAY
+iterations; the summaries and the in-training eval end at a barrier. The
+in-training eval runs on every rank, striped by ``test_net``, and only the
+coordinator gets the mAP. The 'model' axis raises (ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
@@ -44,12 +57,18 @@ from tf_faster_rcnn_torch.config import cfg
 from tf_faster_rcnn_torch.data.loader import (PrefetchingDataLayer,
                                               RoIDataLayer)
 from tf_faster_rcnn_torch.data.roidb import filter_roidb, prepare_roidb
-from tf_faster_rcnn_torch.engine.losses import detection_losses
+from tf_faster_rcnn_torch.engine.losses import (detection_losses,
+                                                global_losses)
 from tf_faster_rcnn_torch.engine.train import (create_train_state,
                                                make_train_step, scale_recipe)
 from tf_faster_rcnn_torch.models.init import reference_init
 from tf_faster_rcnn_torch.models.network import (DTYPES, FasterRCNN,
                                                  spec_from_cfg)
+from tf_faster_rcnn_torch.parallel import dist
+from tf_faster_rcnn_torch.parallel.mesh import (MODEL_AXIS_NOT_PORTED,
+                                                data_axis_size, data_index,
+                                                make_mesh, model_axis_size,
+                                                psum, shard_params)
 from tf_faster_rcnn_torch.utils import checkpoint as ckpt
 from tf_faster_rcnn_torch.utils.metrics import MetricsWriter
 from tf_faster_rcnn_torch.utils.tb_writer import TBEventWriter
@@ -64,7 +83,8 @@ PROFILE_STEPS = 5
 
 class SolverWrapper(object):
     def __init__(self, network_name, imdb, roidb, valroidb, output_dir,
-                 tb_dir, pretrained_model=None, valimdb=None, device="cuda"):
+                 tb_dir, pretrained_model=None, valimdb=None, device="cuda",
+                 mesh=None):
         self.net_name = network_name
         self.imdb = imdb
         self.roidb = roidb
@@ -74,6 +94,9 @@ class SolverWrapper(object):
         self.tb_dir = tb_dir
         self.pretrained_model = pretrained_model
         self.device = torch.device(device)
+        self.mesh = mesh
+        self._pid, self._pcount = data_index(mesh), data_axis_size(mesh)
+        self._is_coord = self._pid == 0
         self._best_map = -1.0
         self._skip_streak = 0
         self._eval_model = None
@@ -85,7 +108,8 @@ class SolverWrapper(object):
         self.spec = spec_from_cfg(self.net_name, self.imdb.num_classes,
                                   "TRAIN")
         self.model = FasterRCNN(self.spec, device=self.device)
-        self.batch_size = b = int(cfg.TPU.IMS_PER_DEVICE)
+        # the global batch: IMS_PER_DEVICE on each rank of the data axis
+        self.batch_size = b = int(cfg.TPU.IMS_PER_DEVICE) * self._pcount
         # the JAX package's initializers give every tensor a value; a
         # checkpoint then overwrites what it holds (an ImageNet one lacks
         # the detection heads, which keep this draw)
@@ -118,7 +142,7 @@ class SolverWrapper(object):
             mobile_weight_decay=float(cfg.MOBILENET.WEIGHT_DECAY),
             regu_depth=bool(cfg.MOBILENET.REGU_DEPTH),
             lr_fn=self.state.tx.lr_fn,
-            nan_guard=bool(cfg.TPU.NAN_GUARD))
+            nan_guard=bool(cfg.TPU.NAN_GUARD), mesh=self.mesh)
 
     def _warn_random_init(self):
         """The JAX loop's warnings for a run without pretrained weights: a
@@ -145,16 +169,22 @@ class SolverWrapper(object):
     def _val_losses(self, batch, it):
         """The TRAIN-mode losses on a val batch, with sampling noise from a
         generator seeded with it (never the train state's generator, so a
-        resumed run draws what an unbroken one draws)."""
+        resumed run draws what an unbroken one draws); with a mesh, this
+        rank's rows of the global batch's noise, and the global batch's
+        losses."""
         gen = torch.Generator(device=self.device).manual_seed(int(it))
         out = self.model(batch["image"], batch["im_info"],
-                         batch["gt_boxes"], batch["gt_valid"], generator=gen)
-        return detection_losses(out)
+                         batch["gt_boxes"], batch["gt_valid"], generator=gen,
+                         shard=(self._pid, self._pcount))
+        reduce = psum(self.mesh)
+        return global_losses(detection_losses(out, reduce), reduce)
 
     def _eval_map(self, it, writer):
         """In-training validation mAP (TPU.EVAL_ITERS): the TEST-mode eval
         engine on valimdb with the live parameters. The TEST model and its
-        detect function are built once per run."""
+        detect function are built once per run. Every rank calls it at the
+        same iteration; test_net stripes the images over the ranks, and
+        only the coordinator gets the mAP (the others return None)."""
         from tf_faster_rcnn_torch.engine.test_engine import (make_detect_fn,
                                                              test_net)
         if self._eval_model is None:
@@ -173,6 +203,8 @@ class SolverWrapper(object):
                            max_per_image=int(cfg.TPU.MAX_PER_IMAGE),
                            output_dir=out_dir,
                            detect_fn=self._eval_detect_fn)
+        if not self._is_coord:
+            return None
         # keep only the newest eval's artifacts
         if self._last_eval_dir and os.path.isdir(self._last_eval_dir):
             shutil.rmtree(self._last_eval_dir, ignore_errors=True)
@@ -218,6 +250,9 @@ class SolverWrapper(object):
             self.tb_writer.add_histogram("TRAIN/" + "/".join(path), leaf, it)
 
     def snapshot(self):
+        """The snapshot pair and the retention (utils/checkpoint.py writes
+        on the coordinator only: every rank holds the same state and
+        iteration state)."""
         prefix = cfg.TRAIN.SNAPSHOT_PREFIX
         ckpt.snapshot(self.output_dir, prefix, self.state,
                       {"train": self.data_layer.get_state(),
@@ -248,8 +283,9 @@ class SolverWrapper(object):
             self._skip_streak = 0
             return
         self._skip_streak += 1
-        print(f"WARNING: iter {it}: non-finite loss/grads — update skipped "
-              f"({self._skip_streak} consecutive)")
+        if self._is_coord:
+            print(f"WARNING: iter {it}: non-finite loss/grads — update "
+                  f"skipped ({self._skip_streak} consecutive)")
         patience = int(cfg.TPU.NAN_GUARD_PATIENCE)
         if patience and self._skip_streak >= patience:
             self.snapshot()
@@ -258,10 +294,18 @@ class SolverWrapper(object):
                 f"non-finite steps (snapshot saved at iter {it})")
 
     def _summary(self, metrics, batch, it, writer):
+        """The val losses on every rank (global with a mesh); the writers on
+        the coordinator; then a barrier, as the coordinator's writing may
+        take long."""
         m = {k: float(v) for k, v in metrics.items()}
         val_batch = self.data_layer_val.forward()
         val_batch.pop("orig_hw")
         vm = {k: float(v) for k, v in self._val_losses(val_batch, it).items()}
+        if self._is_coord:
+            self._write_summary(m, vm, batch, it, writer)
+        dist.barrier(f"summary_{it}")
+
+    def _write_summary(self, m, vm, batch, it, writer):
         writer.write(it, m, prefix="train")
         self.tb_writer.add_scalars(m, it)
         writer.write(it, vm, prefix="val")
@@ -281,19 +325,24 @@ class SolverWrapper(object):
         eval_iters = 0
         if int(cfg.TPU.EVAL_ITERS) > 0 and self.valimdb is not None:
             eval_iters = self.recipe["iters"](cfg.TPU.EVAL_ITERS)
+        # every rank holds the same iteration state and decodes its slice
+        sliced = dict(process_index=self._pid, process_count=self._pcount)
         self.data_layer = RoIDataLayer(self.roidb, batch_size=self.batch_size,
-                                       device=self.device)
+                                       device=self.device, **sliced)
         self.data_layer_val = RoIDataLayer(self.valroidb, random=True,
                                            batch_size=self.batch_size,
-                                           device=self.device)
+                                           device=self.device, **sliced)
         if int(cfg.TPU.PREFETCH) > 0:
             self.data_layer = PrefetchingDataLayer(
                 self.data_layer, depth=int(cfg.TPU.PREFETCH))
-        writer = MetricsWriter(self.tb_dir)
-        # TensorBoard event files in train/val sibling dirs, as in the
-        # reference (train_val.py:149-151)
-        self.tb_writer = TBEventWriter(self.tb_dir)
-        self.tb_writer_val = TBEventWriter(self.tb_dir + "_val")
+        # the host-side writers are the coordinator's; TensorBoard event
+        # files in train/val sibling dirs, as in the reference
+        # (train_val.py:149-151)
+        writer = self.tb_writer = self.tb_writer_val = None
+        if self._is_coord:
+            writer = MetricsWriter(self.tb_dir)
+            self.tb_writer = TBEventWriter(self.tb_dir)
+            self.tb_writer_val = TBEventWriter(self.tb_dir + "_val")
         # preemption: finish the step in flight, snapshot, stop, so the
         # same command resumes from here
         preempted = []
@@ -308,6 +357,7 @@ class SolverWrapper(object):
             prev_handler = None
         try:
             self._restore()
+            shard_params(self.mesh, self.state)
             it = self._loop(max_iters, snapshot_iters, eval_iters, writer,
                             preempted)
             if preempted:
@@ -319,9 +369,10 @@ class SolverWrapper(object):
         finally:
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
-            writer.close()
-            self.tb_writer.close()
-            self.tb_writer_val.close()
+            if self._is_coord:
+                writer.close()
+                self.tb_writer.close()
+                self.tb_writer_val.close()
             if isinstance(self.data_layer, PrefetchingDataLayer):
                 self.data_layer.close()
         return self.state
@@ -331,10 +382,21 @@ class SolverWrapper(object):
         timer = Timer()
         last_summary_time = time.time()
         it = int(self.state.step)
-        profile_dir = str(cfg.TPU.PROFILE_DIR)
+        # the trace of the coordinator's steps
+        profile_dir = str(cfg.TPU.PROFILE_DIR) if self._is_coord else ""
         profile_start = it + min(10, max(max_iters - it - 1, 0))
         profiler = None
-        while it < max_iters and not preempted:
+        while it < max_iters:
+            if self._pcount > 1:
+                # leaving the loop must be agreed, or the other ranks wait
+                # in the next step's reduce for the one that left
+                if it % int(cfg.TRAIN.DISPLAY) == 0 and \
+                        dist.any_process(bool(preempted)):
+                    if not preempted:
+                        preempted.append("peer")
+                    break
+            elif preempted:
+                break
             if profile_dir and profiler is None and it >= profile_start:
                 profiler = _start_profiler(self.device)
             elif profiler is not None and it >= profile_start + PROFILE_STEPS:
@@ -349,11 +411,19 @@ class SolverWrapper(object):
             timer.toc()
 
             now = time.time()
-            if it == 1 or now - last_summary_time > cfg.TRAIN.SUMMARY_INTERVAL:
+            if self._pcount > 1:
+                # every rank enters the val losses' reduce: by the count
+                do_summary = it == 1 or (
+                    int(cfg.TPU.SUMMARY_ITERS) > 0
+                    and it % int(cfg.TPU.SUMMARY_ITERS) == 0)
+            else:
+                do_summary = (it == 1 or now - last_summary_time
+                              > cfg.TRAIN.SUMMARY_INTERVAL)
+            if do_summary:
                 self._summary(metrics, batch, it, writer)
                 last_summary_time = now
 
-            if it % cfg.TRAIN.DISPLAY == 0:
+            if it % cfg.TRAIN.DISPLAY == 0 and self._is_coord:
                 m = {k: float(v) for k, v in metrics.items()}
                 print('iter: %d / %d, total loss: %.6f\n '
                       '>>> rpn_loss_cls: %.6f\n '
@@ -370,6 +440,7 @@ class SolverWrapper(object):
                 self.snapshot()
             if eval_iters and it % eval_iters == 0:
                 self._eval_map(it, writer)
+                dist.barrier(f"eval_{it}")
         if profiler is not None:     # the loop ended inside the window
             _stop_profiler(profiler, profile_dir, it)
         return it
@@ -407,20 +478,20 @@ def get_training_roidb(imdb):
 def train_net(network_name, imdb, roidb, valroidb, output_dir, tb_dir,
               pretrained_model=None, max_iters=40000, mesh=None,
               valimdb=None, device="cuda"):
-    """Train a Faster R-CNN network on one device (reference
-    train_val.py:363-378); returns the final TrainState. ``valimdb``
-    enables the in-training validation mAP (TPU.EVAL_ITERS)."""
-    if mesh is not None or (torch.distributed.is_available()
-                            and torch.distributed.is_initialized()
-                            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "training over a device mesh or several processes is not "
-            "ported yet (ROADMAP.md, Queue A: parallelism)")
+    """Train a Faster R-CNN network (reference train_val.py:363-378);
+    returns the final TrainState. ``valimdb`` enables the in-training
+    validation mAP (TPU.EVAL_ITERS). In a process group of several ranks
+    every rank calls it, each on its device, over mesh (the 'data' mesh of
+    the group when None)."""
+    if mesh is None and dist.process_count() > 1:
+        mesh = make_mesh()
+    if model_axis_size(mesh) > 1 or int(cfg.TPU.MODEL_DEVICES) > 1:
+        raise NotImplementedError("training with " + MODEL_AXIS_NOT_PORTED)
     roidb = filter_roidb(roidb)
     valroidb = filter_roidb(valroidb)
     sw = SolverWrapper(network_name, imdb, roidb, valroidb, output_dir,
                        tb_dir, pretrained_model=pretrained_model,
-                       valimdb=valimdb, device=device)
+                       valimdb=valimdb, device=device, mesh=mesh)
     print('Solving...')
     state = sw.train_model(max_iters)
     print('done solving')

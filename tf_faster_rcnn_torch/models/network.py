@@ -39,9 +39,10 @@ from tf_faster_rcnn_torch.ops.boxes import (BBOX_XFORM_CLIP,
                                             bbox_transform_inv, clip_boxes)
 from tf_faster_rcnn_torch.ops.nms import sorted_nms
 from tf_faster_rcnn_torch.ops.roi_align import roi_crop_pool
+from tf_faster_rcnn_torch.parallel.dist import local_slice
 
 __all__ = ["ModelSpec", "FasterRCNN", "TrainNoise", "draw_noise",
-           "spec_from_cfg", "trainable_mask"]
+           "shard_noise", "spec_from_cfg", "trainable_mask"]
 
 BACKBONES = ("vgg16", "res50", "res101", "res152", "mobile")
 RESNETS = ("res50", "res101", "res152")
@@ -206,6 +207,17 @@ def draw_noise(generator: Optional[torch.Generator], batch: int,
                                 generator=generator, device=device)
                      < vgg16.KEEP_PROB for _ in range(2))
     return TrainNoise(*noise, dropout=keep)
+
+
+def shard_noise(noise: TrainNoise, index: int, count: int) -> TrainNoise:
+    """Part index of count equal parts of a global batch's TrainNoise: the
+    rows of that part's images, and of their RoIs in the dropout masks
+    (image-major, as the tail flattens them)."""
+    def part(t):
+        return t[local_slice(t.shape[0], index, count)]
+    keep = None if noise.dropout is None else tuple(
+        part(m) for m in noise.dropout)
+    return TrainNoise(*(part(t) for t in noise[:4]), dropout=keep)
 
 
 def draw_top_pad(batch: int, n_anchors: int, top_n: int,
@@ -399,13 +411,17 @@ class FasterRCNN(nn.Module):
     def forward(self, image, im_info, gt_boxes=None, gt_valid=None,
                 noise: Optional[TrainNoise] = None,
                 generator: Optional[torch.Generator] = None,
-                top_pad: Optional[torch.Tensor] = None):
+                top_pad: Optional[torch.Tensor] = None,
+                shard: Optional[Tuple[int, int]] = None):
         """image: [B, H, W, 3] mean-subtracted BGR on the static canvas;
         im_info: [B, 3] (h, w, scale) true extents. TRAIN only: gt_boxes
         [B, G, 5] (x1, y1, x2, y2, cls) padded, gt_valid [B, G], and the
         TrainNoise (with vgg16's dropout masks), drawn from generator when
-        None. TEST.MODE 'top' only: top_pad, the pad indices of _proposals.
-        Returns the dict of FasterRCNN.__call__; in TRAIN mode rois and
+        None; shard=(index, count) makes this batch part index of count
+        equal parts of a global batch (a data-parallel rank's rows): the
+        noise is then drawn for the global batch and this part's rows are
+        kept, so every rank's generator draws alike. TEST.MODE 'top' only:
+        top_pad, the pad indices of _proposals. Returns the dict of FasterRCNN.__call__; in TRAIN mode rois and
         roi_valid are the sampled RoIs, roi_scores is None, and
         anchor_targets and proposal_targets are added."""
         s = self.spec
@@ -451,11 +467,14 @@ class FasterRCNN(nn.Module):
         if train:
             vgg = s.backbone == "vgg16"
             if noise is None:
+                index, count = shard or (0, 1)
                 n_rois = rois.shape[1] + (gt_boxes.shape[1] if s.use_gt
                                           else 0)
-                noise = draw_noise(generator, b, n_anchors, n_rois,
+                noise = draw_noise(generator, b * count, n_anchors, n_rois,
                                    image.device,
-                                   b * s.roi_batch_size if vgg else 0)
+                                   b * count * s.roi_batch_size if vgg else 0)
+                if count > 1:
+                    noise = shard_noise(noise, index, count)
             if vgg and noise.dropout is None:
                 raise ValueError("vgg16 TRAIN needs the dropout keep masks "
                                  "in noise.dropout")

@@ -4,6 +4,7 @@
     python -m tf_faster_rcnn_torch.tools.test_faster_rcnn \\
         DEVICES DATASET NET \\
         [--tag TAG] [--cfg FILE] [--output-root DIR] [--device cuda] \\
+        [--coordinator HOST:PORT --num-procs N --proc-id I] \\
         [--set KEY VALUE ...]
 
 The port's counterpart of ``experiments/scripts/test_faster_rcnn.sh``, its
@@ -16,7 +17,11 @@ N (a batched run's step count depends on the batch, and 'iter_800' sorts
 after 'iter_1600' as text). ``tools.test_net`` then runs on it in a
 subprocess, with the recipe's anchors and the extra --set pairs, its output
 teed to ``experiments/logs/``. The tag defaults to the extra pairs joined
-by '_'. The port evaluates on one device: DEVICES above 1 raises.
+by '_'. DEVICES goes to ``tools.test_net --devices``: DEVICES ranks on this
+host, one GPU each (gloo processes with ``--device cpu``); more than the
+host's GPUs raises here. The multi-host flags (``--coordinator``,
+``--num-procs``, ``--proc-id``) go to it as given; each process is then one
+rank, so DEVICES above 1 with them raises here.
 """
 
 import argparse
@@ -35,7 +40,8 @@ _ITER = re.compile(r"_iter_(\d+)\.pt$")
 def build_parser(description, train=False):
     ap = argparse.ArgumentParser(description=description)
     add = ap.add_argument
-    add("devices", type=int, help="devices (the port runs on one)")
+    add("devices", type=int,
+        help="data-parallel devices on this host (0 = all GPUs)")
     add("dataset", help="pascal_voc | pascal_voc_0712 | coco")
     add("net", choices=NETS)
     add("--tag", default=None,
@@ -47,6 +53,12 @@ def build_parser(description, train=False):
         help="the ROOT_DIR the run's output/ lives under")
     add("--device", default="cuda",
         help="torch device to run on (default cuda)")
+    add("--coordinator", default=None,
+        help="multi-host coordinator host:port (or env FRCNN_COORDINATOR)")
+    add("--num-procs", dest="num_procs", default=None, type=int,
+        help="multi-host: total process count")
+    add("--proc-id", dest="proc_id", default=None, type=int,
+        help="multi-host: this process id")
     if train:
         add("--weight", default=None,
             help="ImageNet weights (default data/imagenet_weights/<NET>.npz;"
@@ -64,10 +76,13 @@ def build_parser(description, train=False):
 
 def resolve(args):
     """Fill the defaults that depend on the other arguments; raise where
-    DEVICES asks for more than one device."""
-    if args.devices > 1:
-        raise SystemExit(f"DEVICES {args.devices}: the port runs on one "
-                         "device (ROADMAP.md, Queue A: parallelism)")
+    DEVICES asks for more GPUs than this host has, or for more than one
+    with the multi-host flags (each process is then one rank)."""
+    from tf_faster_rcnn_torch.parallel.launch import local_ranks
+    try:
+        local_ranks(args)
+    except SystemExit as e:
+        raise SystemExit(f"DEVICES {args.devices}: {e}") from None
     if len(args.set_cfgs) % 2:
         raise SystemExit("--set takes KEY VALUE pairs (got an odd count)")
     if args.tag is None:
@@ -76,6 +91,17 @@ def resolve(args):
         args.cfg_file = os.path.join("experiments", "cfgs",
                                      f"{args.net}.yml")
     return args
+
+
+def multihost_flags(args):
+    """The multi-host flags given, as arguments of the CLIs."""
+    out = []
+    for flag, value in (("--coordinator", args.coordinator),
+                        ("--num-procs", args.num_procs),
+                        ("--proc-id", args.proc_id)):
+        if value is not None:
+            out += [flag, str(value)]
+    return out
 
 
 def newest_snapshot(rundir, net):
@@ -98,9 +124,10 @@ def main(argv=None):
     run_logged([sys.executable, "-m", "tf_faster_rcnn_torch.tools.test_net",
                 "--imdb", r.test_imdb, "--model", snapshot,
                 "--cfg", args.cfg_file, "--net", args.net,
-                "--device", args.device,
-                "--set", "ANCHOR_SCALES", r.scales, "ANCHOR_RATIOS",
-                r.ratios] + args.set_cfgs, log)
+                "--devices", str(args.devices), "--device", args.device]
+               + multihost_flags(args)
+               + ["--set", "ANCHOR_SCALES", r.scales, "ANCHOR_RATIOS",
+                  r.ratios] + args.set_cfgs, log)
     return snapshot
 
 

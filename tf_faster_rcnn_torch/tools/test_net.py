@@ -6,13 +6,20 @@
         --model WEIGHTS [--device cuda] [--set KEY VALUE ...]
 
 The flags of ``tools/test_net.py`` (--cfg --model --imdb --comp --num_dets
---tag --net --set), run on one device: ``--device`` (default ``cuda``; the
-tests pass ``cpu``). --model is the port's ``save_params`` file (``.pt``), a
-``.msgpack`` that the JAX package wrote (its ``save_params`` export or a
-training snapshot), a training snapshot of the port (``*_iter_N.pt``),
-or, as the JAX CLI takes them, a TF ``.ckpt`` bundle prefix or a slim var
-dict (``.npz``/``.pkl``) through the slim import (``utils/slim_import.py``;
-what it lacks keeps the RNG_SEED draw). Without it the weights are drawn
+--tag --net --devices --coordinator --num-procs --proc-id --set), and
+``--device`` (default ``cuda``; the tests pass ``cpu``). ``--devices N``
+starts N ranks on this host, one GPU each (or N gloo processes with
+``--device cpu``), and the multi-host flags make this process one rank of a
+run across hosts (``parallel/launch.py``): each rank detects its stripe of
+the batches, and rank 0 merges them, writes detections.pkl and evaluates.
+TPU.MODEL_DEVICES above 1 raises.
+
+--model is the port's ``save_params`` file (``.pt``), a ``.msgpack`` that
+the JAX package wrote (its ``save_params`` export or a training snapshot),
+a training snapshot of the port (``*_iter_N.pt``), or, as the JAX CLI
+takes them, a TF ``.ckpt`` bundle prefix or a slim var dict
+(``.npz``/``.pkl``) through the slim import (``utils/slim_import.py``; what
+it lacks keeps the RNG_SEED draw). Without it the weights are drawn
 from RNG_SEED by the JAX package's initializers
 (``models/init.py::reference_init``), as the reference tests with random
 weights. TF32 is off: a float32 compute dtype runs float32 convolutions.
@@ -29,6 +36,9 @@ from tf_faster_rcnn_torch.datasets.factory import get_imdb
 from tf_faster_rcnn_torch.engine.test_engine import test_net
 from tf_faster_rcnn_torch.models.init import reference_init
 from tf_faster_rcnn_torch.models.network import FasterRCNN, spec_from_cfg
+from tf_faster_rcnn_torch.parallel import dist
+from tf_faster_rcnn_torch.parallel.launch import launch, rank_device
+from tf_faster_rcnn_torch.parallel.mesh import MODEL_AXIS_NOT_PORTED
 from tf_faster_rcnn_torch.utils.checkpoint import load_params
 from tf_faster_rcnn_torch.utils.slim_import import load_pretrained_into
 from tf_faster_rcnn_torch.utils.tf_bundle import is_tf_checkpoint
@@ -51,6 +61,16 @@ def parse_args(argv=None):
                         type=int, help='max number of detections per image')
     parser.add_argument('--tag', dest='tag', default='')
     parser.add_argument('--net', dest='net', default='res50', choices=NETS)
+    parser.add_argument('--devices', dest='devices', default=1, type=int,
+                        help='data-parallel devices for evaluation on this '
+                             'host (0 = all available)')
+    parser.add_argument('--coordinator', dest='coordinator', default=None,
+                        help='multi-host eval: coordinator host:port '
+                             '(or env FRCNN_COORDINATOR)')
+    parser.add_argument('--num-procs', dest='num_procs', default=None,
+                        type=int, help='multi-host: total process count')
+    parser.add_argument('--proc-id', dest='proc_id', default=None, type=int,
+                        help='multi-host: this process id')
     parser.add_argument('--device', dest='device', default='cuda',
                         help='torch device to run on (default cuda)')
     parser.add_argument('--set', dest='set_cfgs', default=None,
@@ -88,24 +108,40 @@ def main(argv=None):
     args = parse_args(argv)
     print('Called with args:')
     print(args)
+    return launch(args, run)
+
+
+def run(args):
+    """Evaluate with the parsed flags in this process: one rank of a
+    process group under the multi-host flags (or their variables), else
+    alone. Returns the mAP (None on a rank other than 0)."""
     if args.cfg_file is not None:
         cfg_from_file(args.cfg_file)
     if args.set_cfgs is not None:
         cfg_from_list(args.set_cfgs)
-    print('Using config:')
-    pprint.pprint(cfg)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    device = rank_device(args)
+    dist.initialize(args.coordinator, args.num_procs, args.proc_id,
+                    device=device)
+    try:
+        # the data axis needs no mesh here: each rank detects its stripe
+        if int(cfg.TPU.MODEL_DEVICES) > 1:
+            raise NotImplementedError(MODEL_AXIS_NOT_PORTED)
+        print('Using config:')
+        pprint.pprint(cfg)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
 
-    imdb = get_imdb(args.imdb_name)
-    imdb.competition_mode(args.comp_mode)
-    spec = spec_from_cfg(args.net, imdb.num_classes, 'TEST')
-    model = FasterRCNN(spec, device=args.device).eval()
-    load_model_params(model, args.model, args.net)
+        imdb = get_imdb(args.imdb_name)
+        imdb.competition_mode(args.comp_mode)
+        spec = spec_from_cfg(args.net, imdb.num_classes, 'TEST')
+        model = FasterRCNN(spec, device=device).eval()
+        load_model_params(model, args.model, args.net)
 
-    filename = (args.model or 'random').split('/')[-1] + args.tag
-    return test_net(model, spec, imdb, filename,
-                    max_per_image=args.max_per_image)
+        filename = (args.model or 'random').split('/')[-1] + args.tag
+        return test_net(model, spec, imdb, filename,
+                        max_per_image=args.max_per_image)
+    finally:
+        dist.shutdown()
 
 
 if __name__ == '__main__':

@@ -4,7 +4,9 @@
     python -m tf_faster_rcnn_torch.tools.train_faster_rcnn \\
         DEVICES DATASET NET \\
         [--weight FILE] [--iters N] [--stepsize '[N]'] [--tag TAG] \\
-        [--cfg FILE] [--output-root DIR] [--device cuda] [--set KEY VALUE ...]
+        [--cfg FILE] [--output-root DIR] [--device cuda] \\
+        [--coordinator HOST:PORT --num-procs N --proc-id I] \\
+        [--set KEY VALUE ...]
 
 The port's counterpart of ``experiments/scripts/train_faster_rcnn.sh``,
 its environment hooks as flags (``FRCNN_TAG`` -> --tag, ``FRCNN_CFG`` ->
@@ -16,8 +18,12 @@ imdb(s) for its image budget, with its anchors and LR steps and the extra
 --set pairs, its output teed to ``experiments/logs/``; then
 ``tools.test_faster_rcnn`` evaluates the newest snapshot. ``--weight ''``
 trains from scratch: every tensor drawn by the JAX package's initializers
-(``models/init.py::reference_init``). The port trains on one device:
-DEVICES above 1 raises.
+(``models/init.py::reference_init``). DEVICES goes to both stages as
+``--devices``: DEVICES ranks on this host, one GPU each (gloo processes
+with ``--device cpu``); more than the host's GPUs raises here. The
+multi-host flags (``--coordinator``, ``--num-procs``, ``--proc-id``) go to
+both stages as given; each process is then one rank, so DEVICES above 1 with
+them raises here.
 """
 
 import os
@@ -43,6 +49,7 @@ def main(argv=None):
                 "--imdbval", r.test_imdb, "--iters", str(r.iters),
                 "--cfg", args.cfg_file, "--net", args.net,
                 "--devices", str(args.devices), "--device", args.device]
+               + test_faster_rcnn.multihost_flags(args)
                + (["--tag", args.tag] if args.tag else [])
                + ["--set", "ANCHOR_SCALES", r.scales, "ANCHOR_RATIOS",
                   r.ratios, "TRAIN.STEPSIZE", r.stepsize] + args.set_cfgs,
@@ -50,7 +57,8 @@ def main(argv=None):
     return test_faster_rcnn.main(
         [str(args.devices), args.dataset, args.net, "--tag", args.tag,
          "--cfg", args.cfg_file, "--output-root", args.output_root,
-         "--device", args.device, "--set"] + args.set_cfgs)
+         "--device", args.device] + test_faster_rcnn.multihost_flags(args)
+        + ["--set"] + args.set_cfgs)
 
 
 if __name__ == "__main__":

@@ -12,11 +12,17 @@ The flags of ``tools/trainval_net.py`` (--cfg --weight --imdb --imdbval
 --iters --tag --net --devices --coordinator --num-procs --proc-id --set),
 with '+'-joined imdb names training on the concatenated roidbs, and
 ``--device`` (default ``cuda``; the tests pass ``cpu``). --weight is a slim
-var dict (.npz/.pkl) or a TF .ckpt bundle prefix. The port trains on one
-device: --devices above 1 and the multi-host flags raise. The run resumes
-from the newest snapshot in its output dir, so the same command continues a
-run that was preempted. TF32 is off: a float32 compute dtype runs float32
+var dict (.npz/.pkl) or a TF .ckpt bundle prefix. The run resumes from the
+newest snapshot in its output dir, so the same command continues a run that
+was preempted. TF32 is off: a float32 compute dtype runs float32
 convolutions.
+
+Data parallel (``parallel/launch.py``): ``--devices N`` starts N ranks on
+this host, one GPU each (0 = every GPU; fewer GPUs than N is an error), or N
+gloo processes with ``--device cpu``; the multi-host flags make this
+process one rank of a run across hosts (or the FRCNN_COORDINATOR,
+FRCNN_NUM_PROCS and FRCNN_PROC_ID variables). The global batch is
+TPU.IMS_PER_DEVICE times the ranks. TPU.MODEL_DEVICES above 1 raises.
 """
 
 import argparse
@@ -25,6 +31,8 @@ import sys
 
 import numpy as np
 import torch
+
+from tf_faster_rcnn_torch.parallel.launch import launch, rank_device
 
 NETS = ("vgg16", "res50", "res101", "res152", "mobile")
 
@@ -44,14 +52,13 @@ def build_parser():
     add("--tag", default=None, help="experiment tag (output subdir)")
     add("--net", default="res50", choices=NETS)
     add("--devices", default=0, type=int,
-        help="data-parallel devices (0 = all available); the port trains "
-             "on one")
+        help="data-parallel devices on this host (0 = all available)")
     add("--coordinator", default=None,
-        help="multi-host coordinator host:port (not ported)")
+        help="multi-host coordinator host:port (or env FRCNN_COORDINATOR)")
     add("--num-procs", dest="num_procs", default=None, type=int,
-        help="multi-host: total process count (not ported)")
+        help="multi-host: total process count")
     add("--proc-id", dest="proc_id", default=None, type=int,
-        help="multi-host: this process id (not ported)")
+        help="multi-host: this process id")
     add("--device", default="cuda",
         help="torch device to train on (default cuda)")
     add("--set", dest="set_cfgs", default=None, nargs=argparse.REMAINDER,
@@ -83,22 +90,6 @@ def load_training_roidbs(joined_names):
     return imdb_shell(joined_names, ds.classes), roidb
 
 
-def _one_device(args):
-    """Raise where the flags ask for more than one device or process."""
-    if args.coordinator or args.num_procs or args.proc_id is not None:
-        raise SystemExit("multi-host training is not ported yet (ROADMAP.md,"
-                         " Queue A: parallelism); drop --coordinator, "
-                         "--num-procs and --proc-id")
-    n = args.devices
-    if n == 0:
-        n = (torch.cuda.device_count()
-             if torch.device(args.device).type == "cuda" else 1)
-    if n > 1:
-        raise SystemExit(f"--devices {args.devices} asks for {n} devices; "
-                         "the port trains on one (ROADMAP.md, Queue A: "
-                         "parallelism): pass --devices 1")
-
-
 def main(argv=None):
     if argv is None and len(sys.argv) == 1:
         build_parser().print_help()
@@ -106,41 +97,56 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     print("Called with args:")
     print(args)
-    _one_device(args)
+    return launch(args, run)
 
+
+def run(args):
+    """Train with the parsed flags in this process: one rank of a process
+    group under the multi-host flags (or their variables), else alone."""
     from tf_faster_rcnn_torch.config import (cfg, cfg_from_file,
                                              cfg_from_list, get_output_dir,
                                              get_output_tb_dir)
+    from tf_faster_rcnn_torch.parallel import dist
     if args.cfg_file is not None:
         cfg_from_file(args.cfg_file)
     if args.set_cfgs is not None:
         cfg_from_list(args.set_cfgs)
-    print("Using config:")
-    pprint.pprint(cfg)
-    np.random.seed(cfg.RNG_SEED)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-    imdb, roidb = load_training_roidbs(args.imdb_name)
-    print("{:d} roidb entries".format(len(roidb)))
-
-    output_dir = get_output_dir(imdb, args.tag)
-    print("Output will be saved to `{:s}`".format(output_dir))
-    tb_dir = get_output_tb_dir(imdb, args.tag)
-    print("Metrics will be saved to `{:s}`".format(tb_dir))
-
-    # the validation roidb is never flip-augmented
-    saved_flip, cfg.TRAIN.USE_FLIPPED = cfg.TRAIN.USE_FLIPPED, False
+    device = rank_device(args)
+    dist.initialize(args.coordinator, args.num_procs, args.proc_id,
+                    device=device)
     try:
-        valimdb, valroidb = load_training_roidbs(args.imdbval_name)
-    finally:
-        cfg.TRAIN.USE_FLIPPED = saved_flip
-    print("{:d} validation roidb entries".format(len(valroidb)))
+        if dist.is_initialized():
+            print(f"Training data-parallel: rank {dist.process_index()} of "
+                  f"{dist.process_count()} on {device}")
+        print("Using config:")
+        pprint.pprint(cfg)
+        np.random.seed(cfg.RNG_SEED)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
 
-    from tf_faster_rcnn_torch.engine.train_loop import train_net
-    return train_net(args.net, imdb, roidb, valroidb, output_dir, tb_dir,
-                     pretrained_model=args.weight, max_iters=args.max_iters,
-                     valimdb=valimdb, device=args.device)
+        imdb, roidb = load_training_roidbs(args.imdb_name)
+        print("{:d} roidb entries".format(len(roidb)))
+
+        output_dir = get_output_dir(imdb, args.tag)
+        print("Output will be saved to `{:s}`".format(output_dir))
+        tb_dir = get_output_tb_dir(imdb, args.tag)
+        print("Metrics will be saved to `{:s}`".format(tb_dir))
+
+        # the validation roidb is never flip-augmented
+        saved_flip, cfg.TRAIN.USE_FLIPPED = cfg.TRAIN.USE_FLIPPED, False
+        try:
+            valimdb, valroidb = load_training_roidbs(args.imdbval_name)
+        finally:
+            cfg.TRAIN.USE_FLIPPED = saved_flip
+        print("{:d} validation roidb entries".format(len(valroidb)))
+
+        from tf_faster_rcnn_torch.engine.train_loop import train_net
+        return train_net(args.net, imdb, roidb, valroidb, output_dir, tb_dir,
+                         pretrained_model=args.weight,
+                         max_iters=args.max_iters, valimdb=valimdb,
+                         device=device)
+    finally:
+        dist.shutdown()
 
 
 if __name__ == "__main__":

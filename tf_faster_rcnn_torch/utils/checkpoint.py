@@ -23,6 +23,12 @@ generator, so the port then draws fresh noise from a generator seeded with
 package's and raise here. The reference keeps the last SNAPSHOT_KEPT
 snapshots (train_val.py:221-240) and resumes from the newest (:155-175).
 
+In a multi-process run (``parallel/dist.py``) only the coordinator writes:
+``save_params``, ``snapshot`` and ``remove_old_snapshots`` do nothing on the
+other ranks, which hold the same state. Every rank restores. A snapshot
+holds nothing of a rank, so one written by N ranks resumes on M at the same
+global batch.
+
 Parameter files: ``save_params`` writes a model's
 state_dict with ``torch.save`` (a ``.pt`` file). ``load_params`` reads that,
 a training snapshot's ``.pt`` (its ``state["params"]``), or a ``.msgpack``
@@ -49,6 +55,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from tf_faster_rcnn_torch.parallel import dist
 from tf_faster_rcnn_torch.utils.weights import (state_dict_from_flax,
                                                 train_state_from_flax)
 
@@ -65,7 +72,9 @@ _CHUNKED = "__msgpack_chunked_array__"
 
 def save_params(path, params):
     """Write a model's parameters (a module or its state_dict) to path with
-    torch.save, as CPU tensors."""
+    torch.save, as CPU tensors; on the coordinator only."""
+    if not dist.on_coordinator():
+        return
     if isinstance(params, torch.nn.Module):
         params = params.state_dict()
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -112,8 +121,11 @@ def _meta_path(output_dir, prefix, step):
 def snapshot(output_dir, prefix, state, data_state: dict,
              extra_meta: Optional[dict] = None) -> Tuple[str, str]:
     """Write a (state .pt, host-meta .pkl) snapshot pair of a TrainState;
-    returns the two paths."""
+    returns the two paths (None on a rank other than the coordinator, which
+    writes nothing)."""
     check_backend()
+    if not dist.on_coordinator():
+        return None
     os.makedirs(output_dir, exist_ok=True)
     saved = state.state_dict()
     step = saved["step"]
@@ -189,9 +201,9 @@ def find_previous(output_dir, prefix):
 
 
 def remove_old_snapshots(output_dir, prefix, keep: int):
-    """Delete all but the newest keep snapshot pairs; keep <= 0 deletes
-    nothing."""
-    if keep <= 0:
+    """Delete all but the newest keep snapshot pairs, on the coordinator;
+    keep <= 0 deletes nothing."""
+    if keep <= 0 or not dist.on_coordinator():
         return
     entries = _snapshots(output_dir, prefix)
     for step in sorted(entries)[:-keep]:
