@@ -38,7 +38,8 @@ Phases, in order; any failure raises and the exit code is nonzero:
    (1e-3 in bf16, where the crop's backward adds atomically in bf16);
    K1 equal to its plain version on the step's own inputs; one step with
    torch's sync debug mode on makes no host sync. Then the step's
-   time (mean of 10 by CUDA events after warm-up), images/s, peak memory,
+   time (mean of ITERS = 5 by CUDA events after warm-up), images/s, peak
+   memory,
    and K1's graph-replay time, plain time and bound on the step's inputs;
 7. bf16 detect: phase 4's step at TPU.COMPUTE_DTYPE bfloat16 (the bench's
    configuration, bench.py and tools/bench_train.py) on the same weights:
@@ -117,7 +118,7 @@ Phases, in order; any failure raises and the exit code is nonzero:
    figures and JSON. Times: the export CLI as a whole and per bucket (from
    the files' times), the bundle's bytes, the load
    in the fresh process, the exported step beside the live step (CUDA
-   events, mean of 10 after warm-up), serve images/s from the first decode
+   events, mean of 5 after warm-up), serve images/s from the first decode
    to the JSON, demo ms per image, and the kernels on the serve path;
 14. from scratch: for res101, vgg16 and mobile at full width,
    models/init.py::reference_init (the JAX package's initializers) on the
@@ -132,8 +133,10 @@ Phases, in order; any failure raises and the exit code is nonzero:
    on the first and the last step's inputs and on every eval call. Times:
    steps/s, and the wall time from the drill's start to the gate;
 15. COCO rehearsal: python -m tf_faster_rcnn_torch.tools.coco_rehearsal in
-   a subprocess at its defaults (res101 from scratch on a synthetic
-   80-class COCO, 4000 images = 500 steps at B = 8, f32, through the
+   a subprocess at its defaults but --iters REHEARSAL_ITERS (res101 from
+   scratch on a synthetic 80-class COCO, 3000 images = 375 steps at B =
+   8, f32, against the tool's 4000, to keep the smoke inside its limit;
+   through the
    drivers tools.train_faster_rcnn and tools.test_faster_rcnn), with the
    caller's environment and a working dir of this run's: exit 0, and
    AP@[0.5:0.95] >= 0.05 under both res101.yml and res101-lg.yml. Then its
@@ -168,13 +171,40 @@ Phases, in order; any failure raises and the exit code is nonzero:
    images/s of the two ranks together, and each rank's seconds in host
    agreements (the run token's broadcast, the barriers). The ranks import no module of JAX
    or the JAX package. (d) tools.trainval_net --devices (one more than the
-   GPUs) exits nonzero naming the GPU count.
+   GPUs) exits nonzero naming the GPU count;
+17. model axis (parallel/mesh.py's ('data', 'model') mesh,
+   parallel/tensor_parallel.py, parallel/spatial.py), in phase 16's two
+   processes laid out as a 1 x 2 mesh (make_hybrid_mesh), both ranks on
+   every image of B = 8, each on half the 608 canvas rows: (a) res101
+   train, the RoI head tensor parallel (block4's conv1 by output and conv2
+   by input channels) and the head spatially partitioned, with 16a's
+   noise, against phase 6's plain step from the same seeded state, both
+   computing in float64 under deterministic algorithms (in float32 the
+   random-weight step is discontinuous within an ulp, and the split
+   canvas's convolutions and the split layers' sums round otherwise):
+   the losses within 1e-5 relative and equal on both ranks, the
+   layout-free momentum within 1e-4 of its largest, the anchor and RoI
+   labels equal; (b) the same for vgg16 (the Megatron fc6/fc7 pair + SP)
+   against phase 9's step with its own noise and dropout masks, drawn
+   here; (c)
+   test_net over phase 11's tree at TPU.MODEL_DEVICES 2 (both ranks run
+   every batch): every image detected, at least 0.99 of phase 11's
+   detections matched at IoU 0.9 (matched_share), the mAP on rank 0 only
+   and its difference from phase 11's printed; (d) the res101 snapshot
+   written at 1 x 2 (gathered over 'model', by rank 0 alone) restored in
+   this process equals the gathered state bit for bit, and each rank's
+   slices are its part of it. K1 (and K2 in (c)) once per step or batch
+   on each rank, equal to their plain versions on each rank's calls.
+   Times, in float32: each rank's step ms, its peak memory, and one step
+   more with each collective synchronized: the halo exchanges, the
+   feature gather, the TP reduces and the gradient reduces, each in ms
+   and as a share.
 
 Each phase from 7 on prints its wall time. The kernel line gives, beside
 each kernel's main-path fields (phase 4), its launches, graph-replay time,
 plain time and bound on each other path's own inputs ("paths"; for the
-two-rank paths of phase 16, rank 0's inputs and launches, with each rank's
-launches in "rank_launches").
+two-rank paths of phases 16 and 17, rank 0's inputs and launches, with
+each rank's launches in "rank_launches").
 
 The line before the last is one JSON object describing the kernels; the last
 is {"ok": true, "device": {...}}. TF32 is off in every phase: a float32
@@ -202,7 +232,7 @@ CANVAS = (608, 1024)      # config.canvas_buckets(cfg.TEST)[0] at SCALES 600,
 NUM_CLASSES = 21
 SEED = 0
 WARMUP = 3
-ITERS = 10
+ITERS = 5
 SOURCE = "tf_faster_rcnn_torch/csrc/nms.cu"
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 FLOP/s outside
 # the tensor cores; and the float32 operations of one IoU test (min, max,
@@ -272,7 +302,9 @@ INIT_NETS = ("res101", "vgg16", "mobile")
 INIT_HW = (96, 128)
 INIT_STD = (0.05, 20.0)
 OVERFIT_KEEP = (48, 32)
-# phase 15: the rehearsal's second eval config
+# phase 15: the rehearsal's second eval config, and its images (375 steps
+# at B = 8 where the tool's default is 500: the smoke's time limit)
+REHEARSAL_ITERS = 3000
 REHEARSAL_LG_CFG = "experiments/cfgs/res101-lg.yml"
 DP_RANKS = 2
 DP_LOSSES = ("rpn_cross_entropy", "rpn_loss_box", "cross_entropy", "loss_box",
@@ -284,6 +316,11 @@ DP_ITERS = 5
 DP_STEPS = 2
 DP_EVAL_BATCH = 4
 DP_TIMEOUT_S = 600
+# phase 17: the model axis, a 1 x 2 mesh of the two ranks of phase 16
+MA_BACKBONES = ("res101", "vgg16")
+MA_STEPS = 2
+MA_SHARE = 0.99
+MA_PREFIX = "ma"
 REPLACES = {
     "nms_keep_mask_batched": "tf_faster_rcnn_tpu/ops/pallas_nms.py:55",
     "batched_nms_keep": "tf_faster_rcnn_tpu/ops/pallas_nms.py:149",
@@ -739,7 +776,7 @@ def kernel_row(card, label, name, args, kwargs, launches):
     and returned as the kernel line's "paths" entry."""
     kernel, plain = kernel_pairs()[name]
     t = min(graph_ms(lambda: kernel(*args, **kwargs)) for _ in range(2))
-    t_plain = timed(lambda: plain(*args, **kwargs), iters=1, warmup=1)
+    t_plain = timed(lambda: plain(*args, **kwargs), iters=1, warmup=0)
     keep = kernel(*args, **kwargs)
     b_ms, b_by, tests = bound(keep, *args, **kwargs)
     extent = ""
@@ -2396,7 +2433,8 @@ def phase_rehearsal(card, dev, errors):
             proc = subprocess.run(
                 [sys.executable, "-m",
                  "tf_faster_rcnn_torch.tools.coco_rehearsal",
-                 "--workdir", wd], cwd=root, env=CALLER_ENV, stdout=f,
+                 "--workdir", wd, "--iters", str(REHEARSAL_ITERS)],
+                cwd=root, env=CALLER_ENV, stdout=f,
                 stderr=subprocess.STDOUT)
         with open(log) as f:
             lines = f.read().splitlines()
@@ -2474,24 +2512,39 @@ def moved(args, device):
 
 
 def phase_data_parallel(card, dev, errors, eval_ref):
-    """Phase 16 (docstring): the data-parallel step through NCCL at one
-    rank, then two ranks sharing the card over gloo for a train step and
-    a striped eval, then --devices above the GPU count; returns the
-    kernels' rows of the two-rank paths."""
+    """Phases 16 and 17 (docstring), which share the two ranks' processes:
+    the data-parallel step through NCCL at one rank and phase 17's vgg16
+    reference step here, then two ranks sharing the card over gloo for
+    phase 16's train step and striped eval and phase 17's model axis, then
+    --devices above the GPU count; returns the kernels' rows of the
+    two-rank paths."""
     import tempfile
     import torch
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
         reference = dp_one_rank(card, dev, tmp)
         torch.cuda.empty_cache()
+        t_ma = time.perf_counter()
+        ma_vgg16_noise(dev, tmp)
+        references = {b: ma_float64(dev, b, tmp) for b in MA_BACKBONES}
+        t_ma = time.perf_counter() - t_ma
         write_eval_tree(tmp)
         results = dp_spawn(tmp)
         rows = {"train dp2": dp_train_checks(card, dev, errors, reference,
                                              results, tmp),
                 "eval dp2": dp_eval_checks(card, dev, errors, eval_ref,
                                            results, tmp)}
-    dp_too_many_devices()
-    print(f"phase data parallel: {time.perf_counter() - t0:.1f} s")
+        dp_too_many_devices()
+        t1 = time.perf_counter()
+        ma_s = max(r["model_axis"]["seconds"] for r in results)
+        print(f"phase data parallel: {t1 - t0 - t_ma - ma_s:.1f} s (the "
+              f"ranks' phase 17 work taken out)")
+        rows.update(phase_model_axis(card, dev, errors, references,
+                                     eval_ref, results, tmp))
+    print(f"phase model axis: {time.perf_counter() - t1 + t_ma + ma_s:.1f} "
+          f"s (the float64 references {t_ma:.1f} s, the ranks' work "
+          f"{ma_s:.1f} "
+          f"s, the checks here)")
     return rows
 
 
@@ -2660,6 +2713,7 @@ def dp_worker(rank, world, port, tmp):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     dist.initialize(f"localhost:{port}", world, rank, backend="gloo",
                     device=dev)
     out = {"rank": rank}
@@ -2732,6 +2786,9 @@ def dp_worker(rank, world, port, tmp):
         torch.cuda.empty_cache()
         out["eval"] = {b: dp_eval_run(tmp, b, f"eval_dp2_b{b}")
                        for b in (BATCH, DP_EVAL_BATCH)}
+        out["dp_seconds"] = time.perf_counter() - t_start
+        torch.cuda.empty_cache()
+        out["model_axis"] = ma_worker(rank, tmp, dev)
         out["jax"] = sorted(
             name for name in sys.modules
             if name == "jax" or name.startswith(("jax.",
@@ -2743,11 +2800,13 @@ def dp_worker(rank, world, port, tmp):
     print(f"rank {rank}: done", flush=True)
 
 
-def dp_eval_run(tmp, batch, name):
+def dp_eval_run(tmp, batch, name, mesh=None):
     """test_net over the VOC tree in tmp at TPU.IMS_PER_DEVICE batch on
     phase 4's seeded weights, into tmp/name (striped over the ranks when a
-    process group is up), its NMS calls logged; each call's kernels
-    against their plain versions here. Returns the run's record."""
+    process group is up; over mesh's data groups, the model laid out for
+    its model axis at TPU.MODEL_DEVICES, when given), its NMS calls logged;
+    each call's kernels against their plain versions here. Returns the
+    run's record."""
     import torch
     from tf_faster_rcnn_torch.config import cfg_from_file, cfg_from_list, \
         reset_cfg
@@ -2757,15 +2816,19 @@ def dp_eval_run(tmp, batch, name):
     from tf_faster_rcnn_torch.models.network import FasterRCNN, spec_from_cfg
     from tf_faster_rcnn_torch.ops import nms_kernels as K
     from tf_faster_rcnn_torch.parallel import dist
+    from tf_faster_rcnn_torch.parallel.mesh import (model_axis_size,
+                                                    shard_model)
     root = os.path.dirname(os.path.abspath(__file__))
     reset_cfg()
     cfg_from_file(os.path.join(root, EVAL_CFG_FILE))
     cfg_from_list(["TPU.IMS_PER_DEVICE", str(batch), "DATA_DIR", tmp,
-                   "ROOT_DIR", tmp])
+                   "ROOT_DIR", tmp, "TPU.MODEL_DEVICES",
+                   str(model_axis_size(mesh))])
     try:
         spec = spec_from_cfg("res101", NUM_CLASSES, "TEST")
         model = FasterRCNN(spec).eval()
         init_model(model, torch.Generator().manual_seed(SEED))
+        shard_model(mesh, model, "res101")
         imdb = get_imdb("voc_2007_test")
         calls = []
         K.reset_launch_counts()
@@ -2774,7 +2837,8 @@ def dp_eval_run(tmp, batch, name):
         agree = {}
         with nms_route(log=calls), timed_agreements(agree):
             mean_ap, _ = quiet(lambda: E.test_net(
-                model, spec, imdb, name, output_dir=os.path.join(tmp, name)))
+                model, spec, imdb, name, output_dir=os.path.join(tmp, name),
+                mesh=mesh))
         seconds = time.perf_counter() - t
         launches = K.launch_counts()
         err = {n: 0 for n in kernel_pairs()}
@@ -2975,6 +3039,431 @@ def dp_too_many_devices():
                              "naming the GPU count")
 
 
+def ma_vgg16_noise(dev, tmp):
+    """17b's noise for phase 9's vgg16 step, with the dropout masks, saved
+    to tmp for the ranks (17a takes 16a's)."""
+    import torch
+    from tf_faster_rcnn_torch.config import cfg_from_list, reset_cfg
+    from tf_faster_rcnn_torch.models.network import draw_noise, spec_from_cfg
+    reset_cfg()
+    cfg_from_list(BACKBONE_TRAIN_CFG["vgg16"])
+    spec = spec_from_cfg("vgg16", NUM_CLASSES, "TRAIN")
+    reset_cfg()
+    fh, fw = CANVAS[0] // spec.feat_stride, CANVAS[1] // spec.feat_stride
+    noise = draw_noise(torch.Generator(device=dev).manual_seed(SEED + 17),
+                       BATCH, fh * fw * spec.num_anchors,
+                       spec.rpn_post_nms_top_n, dev,
+                       BATCH * spec.roi_batch_size)
+    torch.save({"noise": tuple(t.cpu() for t in noise[:4]),
+                "dropout": tuple(t.cpu() for t in noise.dropout)},
+               os.path.join(tmp, "noise_vgg16.pt"))
+
+
+@contextlib.contextmanager
+def computing_in(model, dtype):
+    """Every convolution and matmul of model computing in dtype (their
+    compute_dtype) while the context is open."""
+    saved = [(m, m.compute_dtype) for m in model.modules()
+             if hasattr(m, "compute_dtype")]
+    for m, _ in saved:
+        m.compute_dtype = dtype
+    try:
+        yield model
+    finally:
+        for m, dt in saved:
+            m.compute_dtype = dt
+
+
+@contextlib.contextmanager
+def timed_collectives(record):
+    """The model axis's collectives, each call's seconds (host clock
+    between two synchronizes, the packing included) appended to
+    record[kind] while the context is open: "halo" (the halo exchanges,
+    forward and backward), "gather" (the feature gather), "tp" (the tensor
+    parallel reduces, forward and backward) and "grad" (the gradient
+    reduces of the step)."""
+    import torch
+    from tf_faster_rcnn_torch.engine import train as train_mod
+    from tf_faster_rcnn_torch.parallel import spatial, tensor_parallel
+    sites = [(spatial._Halo, "forward", "halo"),
+             (spatial._Halo, "backward", "halo"),
+             (spatial._GatherRows, "forward", "gather"),
+             (tensor_parallel._Reduce, "forward", "tp"),
+             (tensor_parallel._Copy, "backward", "tp")]
+    saved = [(cls, name, cls.__dict__[name]) for cls, name, _ in sites]
+
+    def timing(kind, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                record.setdefault(kind, []).append(time.perf_counter() - t)
+        return call
+
+    for cls, name, kind in sites:
+        setattr(cls, name, staticmethod(timing(kind, cls.__dict__[name]
+                                               .__func__)))
+    plain_reduce = train_mod.all_reduce_buckets
+    train_mod.all_reduce_buckets = timing("grad", plain_reduce)
+    try:
+        yield record
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+        train_mod.all_reduce_buckets = plain_reduce
+
+
+def ma_train(mesh, backbone, tmp, dev, rank):
+    """17a-17b (and 17d for res101) on this rank: the backbone's train step
+    from build_train_path laid out for the 1 x 2 mesh (shard_params: TP of
+    the RoI head), on the whole batch's rows of this rank (split_canvas:
+    SP of the head), with the reference's noise, under deterministic
+    algorithms and computing in float64 as the reference does; then
+    MA_STEPS more in float32 timed, and one with the collectives timed.
+    Writes the layout-free momentum after the compared step (rank 0) and,
+    for res101, the snapshot and the gathered state to tmp."""
+    import torch
+    from tf_faster_rcnn_torch.ops import nms_kernels as K
+    from tf_faster_rcnn_torch.parallel import dist
+    from tf_faster_rcnn_torch.parallel.mesh import (gather_params,
+                                                    model_index,
+                                                    shard_batch,
+                                                    shard_params, tp_dim)
+    from tf_faster_rcnn_torch.utils import checkpoint as ckpt
+    spec, state, step, batch = build_train_path(dev, backbone, mesh=mesh)
+    shard_params(mesh, state, backbone)
+    local = shard_batch(mesh, batch, spatial=True)
+    noise = ma_noise(tmp, backbone, dev)
+    k1, outs = {}, {}
+    K.reset_launch_counts()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with nms_route(record=k1), record_outputs(outs), \
+                computing_in(state.model, torch.float64):
+            _, m = step(state, local, noise=noise)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    args, kwargs = k1["nms_keep_mask_batched"]
+    res = {"metrics": {k: float(v) for k, v in m.items()},
+           "launches": K.launch_counts(), "k1": (moved(args, "cpu"), kwargs),
+           "roi_labels": outs["proposal_target"].labels.cpu(),
+           "anchor_labels": outs["anchor_target"].labels.cpu(),
+           "canvas_h": local.get("canvas_h"),
+           "rows": tuple(local["image"].shape)}
+    full = gather_params(mesh, state)
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in full["trace"].items()},
+                   os.path.join(tmp, f"ma_trace_{backbone}.pt"))
+    if backbone == "res101":
+        # 17d: the snapshot, layout-free; each rank's slices are its part
+        # of the gathered state
+        i = model_index(mesh)
+        own = dict(state.model.state_dict(), **{
+            "trace:" + k: v for k, v in state.trace.items()})
+        whole = dict(full["params"], **{
+            "trace:" + k: v for k, v in full["trace"].items()})
+        res["shards_ok"] = all(
+            torch.equal(t, whole[k]) if tp_dim(k.split(":")[-1], backbone)
+            is None else torch.equal(t, whole[k].chunk(DP_RANKS, dim=tp_dim(
+                k.split(":")[-1], backbone))[i]) for k, t in own.items())
+        res["snapshot"] = ckpt.snapshot(os.path.join(tmp, "ma_snap"),
+                                        MA_PREFIX, state, {}, mesh=mesh)
+        if rank == 0:
+            torch.save({part: {k: v.cpu() for k, v in full[part].items()}
+                        for part in ("params", "trace")},
+                       os.path.join(tmp, "ma_gathered.pt"))
+    del full
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for _ in range(MA_STEPS):
+        dist.barrier("ma_step")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, m = step(state, local)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t)
+    res["steps_s"] = steps
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    collectives = {}
+    dist.barrier("ma_collectives")
+    with timed_collectives(collectives):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(state, local)
+        torch.cuda.synchronize()
+        res["instrumented_s"] = time.perf_counter() - t
+    res["collectives"] = {k: (len(v), sum(v)) for k, v in collectives.items()}
+    res["launches_all"] = K.launch_counts()
+    del state, step, batch, local
+    torch.cuda.empty_cache()
+    return res
+
+
+def ma_worker(rank, tmp, dev):
+    """Phase 17 on this rank of phase 16's two processes: the 1 x 2 mesh
+    (make_hybrid_mesh), res101 and vgg16 train steps (ma_train), and
+    test_net over phase 11's tree at TPU.MODEL_DEVICES 2 (dp_eval_run with
+    the mesh)."""
+    from tf_faster_rcnn_torch.parallel.mesh import make_hybrid_mesh
+    t0 = time.perf_counter()
+    mesh = make_hybrid_mesh(DP_RANKS)
+    out = {"coords": (mesh.get_local_rank("data"),
+                      mesh.get_local_rank("model"))}
+    for backbone in MA_BACKBONES:
+        out[backbone] = ma_train(mesh, backbone, tmp, dev, rank)
+        print(f"rank {rank}: model axis {backbone} train done", flush=True)
+    out["eval"] = dp_eval_run(tmp, BATCH, "eval_ma", mesh=mesh)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def all_boxes_slabs(all_boxes):
+    """detections.pkl's all_boxes as detection slabs: (det [N, D, 6] of
+    (cls, score, x1, y1, x2, y2), valid [N, D]) tensors, D the most
+    detections of an image."""
+    import torch
+    n = len(all_boxes[1])
+    rows = [[(c, *b[4:5], *b[:4]) for c in range(1, len(all_boxes))
+             for b in np.asarray(all_boxes[c][i]).reshape(-1, 5)]
+            for i in range(n)]
+    d = max(1, max(len(r) for r in rows))
+    det = np.zeros((n, d, 6), np.float32)
+    valid = np.zeros((n, d), bool)
+    for i, r in enumerate(rows):
+        if r:
+            det[i, :len(r)] = r
+            valid[i, :len(r)] = True
+    return torch.from_numpy(det), torch.from_numpy(valid)
+
+
+def ma_noise(tmp, backbone, dev):
+    """The TrainNoise of the backbone's reference step, saved in tmp."""
+    import torch
+    from tf_faster_rcnn_torch.models.network import TrainNoise
+    if backbone == "vgg16":
+        saved = torch.load(os.path.join(tmp, "noise_vgg16.pt"))
+        return TrainNoise(*(t.to(dev) for t in saved["noise"]),
+                          dropout=tuple(t.to(dev) for t in saved["dropout"]))
+    return TrainNoise(*(t.to(dev) for t in torch.load(
+        os.path.join(tmp, "noise.pt"))))
+
+
+def trace_err(got, want):
+    """The largest |difference| of two momentum traces over the largest
+    magnitude of want's."""
+    scale = max(float(t.abs().max()) for t in want.values())
+    return max(float((got[k].cpu() - t.cpu()).abs().max())
+               for k, t in want.items()) / scale
+
+
+def step_distance(metrics, trace, outs, reference):
+    """How far a step is from the reference step: the losses' largest
+    relative difference, the momentum's (trace_err), and the sampled RoI
+    and anchor labels that differ."""
+    want = reference["metrics"]
+    return {"loss": max(abs(metrics[k] - want[k]) / max(abs(want[k]), 1e-30)
+                        for k in DP_LOSSES),
+            "loss_by_key": {k: abs(metrics[k] - want[k])
+                            / max(abs(want[k]), 1e-30) for k in DP_LOSSES},
+            "grad": trace_err(trace, reference["trace"]),
+            "roi_labels": int((outs["roi_labels"].cpu()
+                               != reference["roi_labels"]).sum()),
+            "anchor_labels": int((outs["anchor_labels"].cpu()
+                                  != reference["anchor_labels"]).sum())}
+
+
+def ma_float64(dev, backbone, tmp):
+    """17a-17b's reference, the plain step in float64: phase 6's (or 9's)
+    step from a fresh seeded state with 16a's (or ma_vgg16_noise's) noise,
+    every convolution and matmul computing in float64, under
+    deterministic algorithms; its metrics, momentum and sampled labels."""
+    import torch
+    _, state, step, batch = build_train_path(dev, backbone)
+    outs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        with record_outputs(outs), computing_in(state.model, torch.float64):
+            _, m = step(state, batch, noise=ma_noise(tmp, backbone, dev))
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    exact = {"metrics": {k: float(v) for k, v in m.items()},
+             "trace": {k: v.cpu() for k, v in state.trace.items()},
+             "roi_labels": outs["proposal_target"].labels.cpu(),
+             "anchor_labels": outs["anchor_target"].labels.cpu()}
+    del state, step, batch, outs
+    torch.cuda.empty_cache()
+    return exact
+
+
+def ma_train_checks(card, dev, errors, backbone, reference, results, tmp,
+                    failed):
+    """17a-17b's checks in this process, both steps in float64: the
+    ranks' losses equal; against the reference (step_distance) the losses
+    within DP_LOSS_TOL relative, the layout-free momentum within
+    DP_GRAD_TOL of its largest, the sampled labels of both ranks equal.
+    (In float32 the random-weight step is discontinuous within an ulp of
+    its parameters, and a split canvas's convolutions, which cuDNN runs by
+    other algorithms, and a split layer's sums round otherwise: PERF.md.)
+    SP and TP in force; K1 once at [BATCH, N] -> 2000 on each rank, equal
+    to its plain version on each rank's inputs; the float32 times.
+    Appends what failed to failed and returns rank 0's kernel row."""
+    import torch
+    trace = torch.load(os.path.join(tmp, f"ma_trace_{backbone}.pt"))
+    runs = [res["model_axis"][backbone] for res in results]
+    far = [step_distance(r["metrics"], trace, r, reference) for r in runs]
+    by_key = far[0].pop("loss_by_key")
+    far = {k: max(f[k] for f in far) for k in far[0]}
+    same = all(r["metrics"] == runs[0]["metrics"] for r in runs)
+    tol = {"loss": DP_LOSS_TOL, "grad": DP_GRAD_TOL, "roi_labels": 0,
+           "anchor_labels": 0}
+    print(f"model axis {backbone} train (1 x 2 mesh, TP of the RoI head and "
+          f"SP of the head, two ranks on cuda:0 over gloo; float64, "
+          f"deterministic algorithms): canvas rows "
+          f"{[r['rows'] for r in runs]} of {runs[0]['canvas_h']}; losses "
+          f"equal on both ranks {same}; "
+          f"{ {k: round(runs[0]['metrics'][k], 6) for k in DP_LOSSES} }; "
+          f"from one rank's step: {far}, the losses by key "
+          f"{ {k: float(f'{v:.3g}') for k, v in by_key.items()} } (tol "
+          f"{tol})")
+    if not (same and all(far[k] <= tol[k] for k in tol)
+            and all(r["canvas_h"] == CANVAS[0] for r in runs)):
+        failed.append(f"model axis {backbone}: the step differs from one "
+                      "rank's")
+    rows = []
+    for rank, r in enumerate(runs):
+        args, kwargs = r["k1"]
+        args = moved(args, dev)
+        n = tuple(args[0].shape)
+        if r["launches"] != {"nms_keep_mask_batched": 1,
+                             "batched_nms_keep": 0} or n[0] != BATCH \
+                or kwargs["max_keep"] != 2000:
+            raise AssertionError(f"K1 on rank {rank}: {r['launches']} at {n} "
+                                 f"{kwargs}")
+        check_equal(errors, "nms_keep_mask_batched",
+                    kernel_pairs()["nms_keep_mask_batched"][0](*args,
+                                                               **kwargs),
+                    kernel_pairs()["nms_keep_mask_batched"][1](*args,
+                                                               **kwargs),
+                    f"train model axis {backbone} rank {rank} {n} {kwargs}")
+        step_ms = [x * 1e3 for x in r["steps_s"]]
+        inst = r["instrumented_s"]
+        shares = {k: f"{c} calls {s * 1e3:.3f} ms = {s / inst:.1%}"
+                  for k, (c, s) in sorted(r["collectives"].items())}
+        print(f"time model axis {backbone} train rank {rank}: steps "
+              f"{[round(x, 3) for x in step_ms]} ms (B={BATCH}, half the "
+              f"canvas rows each, two ranks on one card over gloo, f32); "
+              f"peak memory {r['peak_gib']:.3f} GiB; one step with each "
+              f"collective synchronized {inst * 1e3:.3f} ms, of it {shares} "
+              f"[{card}]")
+        rows.append(kernel_row(card, f"train model axis {backbone} rank "
+                               f"{rank}", "nms_keep_mask_batched", args,
+                               kwargs,
+                               r["launches_all"]["nms_keep_mask_batched"]))
+    row = dict(rows[0])
+    row["rank_launches"] = [r["launches"] for r in rows]
+    return {"nms_keep_mask_batched": row}
+
+
+def ma_eval_checks(card, dev, errors, eval_ref, results, tmp, failed):
+    """17c's checks: every image detected, the detections matched to phase
+    11's at IoU 0.9 (matched_share) in at least MA_SHARE of them, the mAP
+    on rank 0 only (its difference from phase 11's printed), each rank's
+    kernels equal to their plain versions on its calls; the time. Returns
+    the kernels' rows (rank 0's inputs)."""
+    all_boxes, mean_ap = eval_ref
+    merged = load_pickle(os.path.join(tmp, "eval_ma", "detections.pkl"))
+    ev = [res["model_axis"]["eval"] for res in results]
+    n = len(merged[1])
+    covered = all(isinstance(merged[c][i], np.ndarray)
+                  for c in range(1, NUM_CLASSES) for i in range(n))
+    hit, total = matched_share(*all_boxes_slabs(merged),
+                               *all_boxes_slabs(all_boxes))
+    got_map = ev[0]["mAP"]
+    print(f"model axis eval (test_net at TPU.MODEL_DEVICES 2, both ranks "
+          f"on every batch, IMS_PER_DEVICE {BATCH}): every image covered "
+          f"{covered}; {hit} of {total} of phase 11's detections matched at "
+          f"IoU 0.9 = {hit / max(total, 1):.4f} (min {MA_SHARE}); mAP "
+          f"{got_map} against phase 11's {mean_ap} (difference "
+          f"{(got_map or 0.0) - mean_ap:+.6f}), other rank "
+          f"{[e['mAP'] for e in ev[1:]]}; launches "
+          f"{[e['launches'] for e in ev]}; kernel errors "
+          f"{[e['max_abs_err'] for e in ev]}")
+    print(f"time model axis eval: {max(e['seconds'] for e in ev):.3f} s for "
+          f"{n} images = {n / max(e['seconds'] for e in ev):.2f} images/s "
+          f"(both ranks on every image; res101 f32, TF32 off) [{card}]")
+    if (not covered or hit < MA_SHARE * total or got_map is None
+            or any(e["mAP"] is not None for e in ev[1:])
+            or any(v for e in ev for v in e["max_abs_err"].values())):
+        failed.append("the model-axis eval differs")
+    rows = {}
+    for name in kernel_pairs():
+        args, kwargs = ev[0]["first"][name]
+        args = moved(args, dev)
+        check_equal(errors, name, kernel_pairs()[name][0](*args, **kwargs),
+                    kernel_pairs()[name][1](*args, **kwargs),
+                    f"eval model axis {tuple(args[0].shape)} {kwargs}")
+        rows[name] = kernel_row(card, "eval model axis", name, args, kwargs,
+                                ev[0]["launches"][name])
+        rows[name]["rank_launches"] = [e["launches"][name] for e in ev]
+    return rows
+
+
+def ma_snapshot_check(dev, results, tmp, failed):
+    """17d: the snapshot written at 1 x 2, restored into one process's
+    state (build_train_path), equals the gathered state bit for bit; each
+    rank's slices were its part of it."""
+    import torch
+    from tf_faster_rcnn_torch.utils import checkpoint as ckpt
+    runs = [res["model_axis"]["res101"] for res in results]
+    path = runs[0]["snapshot"][0]
+    _, state, _, _ = build_train_path(dev)
+    ckpt.restore(state, path)
+    gathered = torch.load(os.path.join(tmp, "ma_gathered.pt"))
+    loaded = state.state_dict()
+    equal = all(torch.equal(loaded[part][k].cpu(), v)
+                for part in ("params", "trace")
+                for k, v in gathered[part].items())
+    keys = all(set(loaded[p]) == set(gathered[p]) for p in ("params",
+                                                          "trace"))
+    print(f"model axis snapshot: {os.path.basename(path)} written by rank 0 "
+          f"alone {[r['snapshot'] is None for r in runs[1:]]}, restored in "
+          f"one process equal to the gathered state bit for bit "
+          f"{equal and keys}; each rank's slices its part of it "
+          f"{[r['shards_ok'] for r in runs]}")
+    if not (equal and keys and all(r["shards_ok"] for r in runs)
+            and all(r["snapshot"] is None for r in runs[1:])):
+        failed.append("the model-axis snapshot differs from the gathered "
+                      "state")
+    del state
+    torch.cuda.empty_cache()
+
+
+def phase_model_axis(card, dev, errors, references, eval_ref, results,
+                     tmp):
+    """Phase 17 (docstring), the checks in this process of what phase 16's
+    two ranks ran (ma_worker); returns the kernels' rows of its paths."""
+    coords = [res["model_axis"]["coords"] for res in results]
+    print(f"model axis: ranks at (data, model) {coords}; worker seconds "
+          f"{[round(r['model_axis']['seconds'], 1) for r in results]}")
+    if coords != [(0, r) for r in range(DP_RANKS)]:
+        raise AssertionError(f"the 1 x {DP_RANKS} mesh: {coords}")
+    failed = []
+    rows = {f"train model axis {b}": ma_train_checks(
+        card, dev, errors, b, references[b], results, tmp, failed)
+        for b in MA_BACKBONES}
+    rows["eval model axis"] = ma_eval_checks(card, dev, errors, eval_ref,
+                                             results, tmp, failed)
+    ma_snapshot_check(dev, results, tmp, failed)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return rows
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "tf_faster_rcnn_torch")):
@@ -3032,7 +3521,7 @@ def main():
     paths.update(phase_rehearsal(card, dev, errors))
     print(f"phases 1-15: {time.perf_counter() - start:.1f} s")
     paths.update(phase_data_parallel(card, dev, errors, eval_ref))
-    print(f"phases 1-16: {time.perf_counter() - start:.1f} s")
+    print(f"phases 1-17: {time.perf_counter() - start:.1f} s")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,

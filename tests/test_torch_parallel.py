@@ -28,9 +28,9 @@ the JAX package and against the port's own single process.
   package (the eval tests' tolerances: boxes 1e-3, scores 1e-5, equal
   mAP); the in-training eval recorded by the coordinator only; and the
   ``trainval_net`` CLI with ``--num-procs 2 --device cpu``.
-* Small units: ``local_slice`` and ``on_coordinator`` of a rank, the
-  'model' axis and ``TPU.MODEL_DEVICES 2`` raising (naming ROADMAP.md),
+* Small units: ``local_slice`` and ``on_coordinator`` of a rank,
   ``--devices`` above the GPU count, and the MATLAB wrapper's own copy.
+  The 'model' axis is ``tests/test_torch_model_axis.py``'s.
 """
 
 import dataclasses
@@ -72,10 +72,9 @@ from tf_faster_rcnn_torch.data import blob as tblob
 from tf_faster_rcnn_torch.data import loader as tloader
 from tf_faster_rcnn_torch.datasets import pascal_voc as tvoc
 from tf_faster_rcnn_torch.engine import losses as tlosses
-from tf_faster_rcnn_torch.engine import train_loop as tloop
 from tf_faster_rcnn_torch.models import network as tnet
 from tf_faster_rcnn_torch.models.init import numpy_params
-from tf_faster_rcnn_torch.parallel import dist, mesh
+from tf_faster_rcnn_torch.parallel import dist
 from tf_faster_rcnn_torch.parallel.launch import free_port
 from tf_faster_rcnn_torch.tools import test_net as test_net_cli
 from tf_faster_rcnn_torch.tools import trainval_net
@@ -614,18 +613,6 @@ def test_local_slice_and_coordinator(monkeypatch):
     monkeypatch.setattr(dist, "process_index", lambda: 1)
     monkeypatch.setattr(dist, "process_count", lambda: 2)
     assert not dist.on_coordinator()
-
-
-def test_model_axis_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mesh.make_hybrid_mesh(model=2)
-    tconfig.cfg.TPU.MODEL_DEVICES = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloop.train_net("mobile", None, [], [], "x", "y", device="cpu")
-    tconfig.reset_cfg()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        test_net_cli.main(["--net", "mobile", "--device", "cpu", "--set",
-                           "TPU.MODEL_DEVICES", "2"])
 
 
 @pytest.mark.parametrize("cli", [trainval_net, test_net_cli])

@@ -397,23 +397,6 @@ def test_orbax_backend_raises(tmp_path_factory):
     with pytest.raises(NotImplementedError, match="orbax"):
         _port_train(root, "out", 4)
     tconfig.reset_cfg()
-    # what still raises: a mesh with a 'model' axis above 1 (a group of one
-    # rank holds it when its backend is not brought up)
-    from torch.distributed.device_mesh import DeviceMesh
-
-    from tf_faster_rcnn_torch.parallel import dist
-    from tf_faster_rcnn_torch.parallel.launch import free_port
-    dist.initialize(f"localhost:{free_port()}", 1, 0, backend="gloo",
-                    device="cpu")
-    try:
-        mesh = DeviceMesh("cpu", torch.arange(2).reshape(1, 2),
-                          mesh_dim_names=("data", "model"),
-                          _init_backend=False)
-        with pytest.raises(NotImplementedError, match="mesh"):
-            tloop.train_net("mobile", None, [], [], "x", "y", mesh=mesh,
-                            device="cpu")
-    finally:
-        dist.shutdown()
 
 
 def _cli(root, iters):

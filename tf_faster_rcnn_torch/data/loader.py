@@ -37,6 +37,7 @@ from tf_faster_rcnn_torch.config import (bucket_index, canvas_buckets, cfg,
                                          mixed_canvas)
 from tf_faster_rcnn_torch.data.blob import (im_scale, prep_batch,
                                             read_image_bgr, upload)
+from tf_faster_rcnn_torch.parallel import dist
 from tf_faster_rcnn_torch.parallel.dist import local_slice
 
 __all__ = ["HostBatch", "PrefetchingDataLayer", "RoIDataLayer",
@@ -118,7 +119,10 @@ class RoIDataLayer(object):
         list, the scales), and decodes only its contiguous slice of each
         batch, the process_index-th of process_count; the global batch must
         divide. A random layer is then seeded from RNG_SEED and its shuffle
-        count instead of the clock, so that every process shuffles alike."""
+        count instead of the clock, so that every process shuffles alike;
+        so it is in any run of several processes, whose model ranks
+        (parallel/mesh.py) share a data index and must draw alike. The
+        model ranks of a data group pass its data index and data size."""
         self._batch = batch_size or int(cfg.TRAIN.IMS_PER_BATCH)
         self._part = local_slice(self._batch, process_index, process_count)
         self._pcount = int(process_count)
@@ -139,7 +143,8 @@ class RoIDataLayer(object):
         if self._random:
             # time-seeded shuffle for the validation layer (layer.py:37-41);
             # processes of one run must shuffle alike, so not by the clock
-            if self._pcount > 1:
+            # (the model ranks of a data group too)
+            if self._pcount > 1 or dist.process_count() > 1:
                 seed = (cfg.RNG_SEED + 0x5EED + self._n_shuffles) % (2 ** 31)
             else:
                 seed = int(time.time() * 1000) % 4096

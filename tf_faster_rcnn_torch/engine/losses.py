@@ -117,14 +117,16 @@ def global_losses(shares: Dict[str, torch.Tensor],
 def weight_decay_loss(model: torch.nn.Module, weight_decay: float,
                       bias_decay: bool = False,
                       mobile_weight_decay: Optional[float] = None,
-                      regu_depth: bool = False):
+                      regu_depth: bool = False,
+                      keep: Optional[Callable[[str], bool]] = None):
     """L2 regularization with tf l2_regularizer semantics: wd * 0.5 *
     sum(w^2) over every conv and Linear weight, frozen ones included;
     biases only under bias_decay. FrozenBN's arrays are buffers and never
     count. wd is weight_decay, but for MobileNet's head and tail, which take
     mobile_weight_decay (MOBILENET.WEIGHT_DECAY; required for that
     backbone), and whose depthwise kernels count only under regu_depth
-    (MOBILENET.REGU_DEPTH)."""
+    (MOBILENET.REGU_DEPTH). keep, when given, selects the parameters
+    that count by name (a float32 zero when it keeps none)."""
     mobile = model.spec.backbone == "mobile"
     if mobile and mobile_weight_decay is None:
         raise ValueError("the mobile backbone needs mobile_weight_decay")
@@ -133,10 +135,14 @@ def weight_decay_loss(model: torch.nn.Module, weight_decay: float,
         if not (name.endswith(".weight")
                 or (bias_decay and name.endswith(".bias"))):
             continue
+        if keep is not None and not keep(name):
+            continue
         wd = weight_decay
         if mobile and name.startswith(("head.", "tail.")):
             if ".depthwise." in name and not regu_depth:
                 continue
             wd = mobile_weight_decay
         terms.append(wd * torch.sum(torch.square(p.to(torch.float32))))
+    if not terms:
+        return torch.zeros((), device=next(model.parameters()).device)
     return 0.5 * torch.stack(terms).sum()

@@ -23,6 +23,12 @@ device collective. The ranks other than 0 write their detections to part
 files named by rank 0's run token; rank 0 merges them, writes
 ``detections.pkl`` and evaluates, and the others return None after the
 closing barrier. The output dir is shared, as for the snapshots.
+
+With a mesh that has a 'model' axis (``parallel/mesh.py``), the batches are
+striped over the data groups instead of the processes: every rank of a
+model group runs the same batch, its RoI head tensor parallel and, under
+TPU.SPATIAL_PARTITION, the backbone head on its rows of the canvas
+(``split_canvas``); only model rank 0 of each group writes a part file.
 """
 
 from __future__ import annotations
@@ -43,6 +49,8 @@ from tf_faster_rcnn_torch.data.blob import (image_size, prep_batch,
                                             read_image_bgr, upload)
 from tf_faster_rcnn_torch.engine.detect import postprocess_detections
 from tf_faster_rcnn_torch.parallel import dist
+from tf_faster_rcnn_torch.parallel.mesh import (data_axis_size, data_index,
+                                                model_index, split_canvas)
 from tf_faster_rcnn_torch.utils.native import nms_cpu
 from tf_faster_rcnn_torch.utils.timer import Timer
 
@@ -60,24 +68,30 @@ def make_detect_fn(model, spec, max_per_image: Optional[int] = None,
     image [B, H, W, 3], im_info [B, 3] and orig_hw [B, 2] are tensors on the
     model's device. detections: [B, max_per_image, 6] as (cls, score, x1,
     y1, x2, y2) in original image coordinates; valid: [B, max_per_image].
+    canvas_h: where image holds this model rank's rows of a canvas of
+    canvas_h rows (FasterRCNN.forward).
     """
     mpi = int(max_per_image or spec.max_per_image)
 
     @torch.inference_mode()
-    def detect(image, im_info, orig_hw):
+    def detect(image, im_info, orig_hw, canvas_h=None):
         return detect_step(model, spec, mpi, score_thresh, image, im_info,
-                           orig_hw)
+                           orig_hw, canvas_h=canvas_h)
 
     return detect
 
 
 def detect_step(model, spec, max_per_image: int, score_thresh: float,
-                image, im_info, orig_hw, top_pad=None):
+                image, im_info, orig_hw, top_pad=None, canvas_h=None):
     """One detect step, the body of make_detect_fn's function and of the
     exported program (utils/serving.py): model(image, im_info, top_pad=...)
     and the postprocess at spec's settings. model is the FasterRCNN or a
-    callable with its forward's signature."""
-    out = model(image, im_info, top_pad=top_pad)
+    callable with its forward's signature; canvas_h, where given, goes to
+    the forward (image then holds rows of the canvas)."""
+    if canvas_h is None:
+        out = model(image, im_info, top_pad=top_pad)
+    else:
+        out = model(image, im_info, top_pad=top_pad, canvas_h=canvas_h)
     return postprocess_detections(
         out["rois"], out["roi_valid"], out["cls_prob"], out["bbox_pred"],
         im_info, orig_hw, num_classes=spec.num_classes,
@@ -130,7 +144,7 @@ def _slab_to_all_boxes(det, dv, num_classes):
 def test_net(model, spec, imdb, weights_filename, max_per_image: int = 100,
              thresh: float = 0.0, batch_size: Optional[int] = None,
              output_dir: Optional[str] = None, detect_fn=None,
-             timers: Optional[dict] = None):
+             timers: Optional[dict] = None, mesh=None):
     """Evaluate a model on an imdb on the model's device; writes
     detections.pkl, runs the dataset's evaluator and returns its result
     (mAP for VOC, AP for COCO). In a multi-process run every rank calls it
@@ -140,7 +154,9 @@ def test_net(model, spec, imdb, weights_filename, max_per_image: int = 100,
     batch_size defaults to TPU.IMS_PER_DEVICE, the images of a batch on
     each rank. detect_fn defaults to
     make_detect_fn(model, spec, max_per_image, thresh). timers, when given,
-    is filled with the 'im_detect' and 'misc' Timers (per batch).
+    is filled with the 'im_detect' and 'misc' Timers (per batch). mesh:
+    the run's mesh, whose data groups the batches are striped over (module
+    docstring); None stripes them over the processes.
     """
     np.random.seed(cfg.RNG_SEED)
     device = next(model.parameters()).device
@@ -171,10 +187,15 @@ def test_net(model, spec, imdb, weights_filename, max_per_image: int = 100,
     schedule = [(k, grp[s:s + b])
                 for k, grp in enumerate(groups)
                 for s in range(0, len(grp), b)]
-    pid, pcount = dist.process_index(), dist.process_count()
+    if mesh is None:
+        pid, pcount, writer = dist.process_index(), dist.process_count(), True
+    else:
+        pid, pcount = data_index(mesh), data_axis_size(mesh)
+        writer = model_index(mesh) == 0
+    spatial = bool(cfg.TPU.SPATIAL_PARTITION)
+    schedule = schedule[pid::pcount]
     run_token = None
-    if pcount > 1:
-        schedule = schedule[pid::pcount]
+    if dist.process_count() > 1:
         # rank 0's token names this run's part files, so a rerun into the
         # same dir can never merge an earlier run's leftovers
         run_token = dist.broadcast_object(
@@ -208,7 +229,10 @@ def test_net(model, spec, imdb, weights_filename, max_per_image: int = 100,
                 next_submit += 1
             images, im_info, orig_hw = _prep_batch(ims, buckets[k], device,
                                                    pixel_means)
-            det, dv = _fetch(*detect_fn(images, im_info, orig_hw))
+            rows = split_canvas(mesh, {"image": images}, spatial)
+            kw = {"canvas_h": rows["canvas_h"]} if "canvas_h" in rows else {}
+            det, dv = _fetch(*detect_fn(rows["image"], im_info, orig_hw,
+                                        **kw))
             _t['im_detect'].toc()
 
             _t['misc'].tic()
@@ -229,9 +253,9 @@ def test_net(model, spec, imdb, weights_filename, max_per_image: int = 100,
         pool.shutdown(wait=False, cancel_futures=True)
 
     det_file = os.path.join(output_dir, 'detections.pkl')
-    if pcount > 1:
+    if dist.process_count() > 1:
         all_boxes = _merge_parts(det_file, all_boxes, pid, pcount,
-                                 num_classes, num_images, run_token)
+                                 num_classes, num_images, run_token, writer)
         if all_boxes is None:
             # wait out rank 0's merge and evaluation on the host group, so
             # a caller that goes back to device collectives (the
@@ -242,20 +266,24 @@ def test_net(model, spec, imdb, weights_filename, max_per_image: int = 100,
         pickle.dump(all_boxes, f, pickle.HIGHEST_PROTOCOL)
     print('Evaluating detections')
     mean = imdb.evaluate_detections(all_boxes, output_dir)
-    if pcount > 1:
+    if dist.process_count() > 1:
         dist.barrier(f"testnet_{run_token}", timeout_ms=1_800_000)
     return mean
 
 
 def _merge_parts(det_file, all_boxes, pid, pcount, num_classes, num_images,
-                 token, timeout_s=900.0):
-    """Ranks other than 0 write their all_boxes to a token-named part file,
-    atomically, and return None; rank 0 waits for every part, merges and
-    removes them, and returns the merged all_boxes. A detected entry is a
-    numpy array (maybe empty), an undetected one the initial []."""
+                 token, writer=True, timeout_s=900.0):
+    """Stripes other than 0 write their all_boxes to a token-named part
+    file, atomically, and return None (one writer a stripe: a rank that is
+    not returns None at once); stripe 0's writer waits for every part,
+    merges and removes them, and returns the merged all_boxes. A detected
+    entry is a numpy array (maybe empty), an undetected one the initial
+    []."""
     def part(p):
         return f'{det_file}.{token}.part{p}'
 
+    if not writer:
+        return None
     if pid != 0:
         path = part(pid)
         with open(path + '.tmp', 'wb') as f:

@@ -39,11 +39,23 @@ step's single psum: every rank applies the same update, and the NaN guard
 reads the reduced gradients and the global loss, so every rank skips or
 applies alike. ``torch.autograd.grad`` bypasses DDP's reducer hooks, so the
 step reduces the gradients itself.
+
+The 'model' axis (``make_hybrid_mesh``; ``parallel/tensor_parallel.py``,
+``parallel/spatial.py``): the model ranks of a data group run the same
+images and noise, so the normalizers are summed over 'data' only. The
+weight decay: a replicated tensor's counts once over the whole mesh, a TP
+slice's on each model rank for its own slice, and the reported
+regularization loss is the one-rank value. The gradients: all summed over
+'data'; the spatially split head's also over 'model', each rank holding
+the share of its rows; the replicated parameters after the gather and the
+TP slices are not summed over 'model'. The NaN guard's verdict is agreed
+over the whole mesh, so a non-finite slice skips the step on every rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
@@ -54,9 +66,11 @@ from tf_faster_rcnn_torch.engine.losses import (detection_losses,
                                                 weight_decay_loss)
 from tf_faster_rcnn_torch.models.network import (DTYPES, ModelSpec,
                                                  TrainNoise)
-from tf_faster_rcnn_torch.parallel.mesh import (all_reduce_buckets,
+from tf_faster_rcnn_torch.parallel.mesh import (MODEL_AXIS,
+                                                all_reduce_buckets,
                                                 data_axis_size, data_index,
-                                                psum)
+                                                model_axis_size, model_index,
+                                                psum, tp_dim)
 
 __all__ = ["Optimizer", "TrainState", "all_finite", "create_train_state",
            "lr_schedule", "make_train_step", "scale_recipe", "train_loss"]
@@ -241,25 +255,50 @@ def train_loss(model: nn.Module, batch: Dict[str, torch.Tensor],
     graph, metrics detached (the four losses, regularization_loss and
     total_loss). The decay arguments are weight_decay_loss's.
 
-    mesh: the 'data' mesh (parallel/mesh.py), None for one process. batch
-    is this rank's rows of the global batch (FasterRCNN.forward's shard),
-    total is this rank's share of the global objective (the decay on the
-    rank of index 0 only), and the metrics are the global batch's
-    values."""
+    mesh: the mesh (parallel/mesh.py), None for one process. batch is this
+    data group's rows of the global batch (FasterRCNN.forward's shard;
+    with ``canvas_h``, this model rank's rows of the canvas), total is this
+    rank's share of the global objective (module docstring), and the
+    metrics are the global batch's values."""
     index = data_index(mesh)
+    canvas_h = batch.get("canvas_h")
     out = model(batch["image"], batch["im_info"], batch["gt_boxes"],
                 batch["gt_valid"], noise=noise, generator=generator,
-                shard=(index, data_axis_size(mesh)))
+                shard=(index, data_axis_size(mesh)), canvas_h=canvas_h)
     reduce = psum(mesh)
     losses = detection_losses(out, reduce)
-    reg = weight_decay_loss(model, weight_decay, bias_decay,
-                            mobile_weight_decay, regu_depth)
-    total = losses["total_loss"] + reg if index == 0 else \
+    decay = functools.partial(weight_decay_loss, model, weight_decay,
+                              bias_decay, mobile_weight_decay, regu_depth)
+    if model_axis_size(mesh) == 1:
+        own = reg = decay()
+    else:
+        own, reg = _hybrid_decay(decay, model, mesh, canvas_h is not None)
+    total = losses["total_loss"] + own if index == 0 else \
         losses["total_loss"]
     metrics = global_losses(losses, reduce)
     metrics["regularization_loss"] = reg.detach()
     metrics["total_loss"] = metrics["total_loss"] + reg.detach()
     return total, metrics
+
+
+def _hybrid_decay(decay, model: nn.Module, mesh, spatial: bool):
+    """(this rank's share of the weight decay, the whole decay) on a mesh
+    with a model axis, for a data group's rank of index 0: the replicated
+    tensors' decay and this rank's TP slices' on every model rank, the
+    spatially split head's (summed over 'model' with its gradients) on
+    model rank 0 alone; the whole is the one-rank value."""
+    backbone = model.spec.backbone
+
+    def role(name):
+        if tp_dim(name, backbone) is not None:
+            return "tp"
+        return "summed" if spatial and name.startswith("head.") else \
+            "replicated"
+
+    rep, tp, summed = (decay(keep=lambda n, r=r: role(n) == r)
+                       for r in ("replicated", "tp", "summed"))
+    own = rep + tp + summed if model_index(mesh) == 0 else rep + tp
+    return own, rep + psum(mesh, MODEL_AXIS)(tp) + summed.detach()
 
 
 def make_train_step(model: nn.Module, spec: ModelSpec, *,
@@ -281,14 +320,16 @@ def make_train_step(model: nn.Module, spec: ModelSpec, *,
 
     nan_guard: when the loss or any gradient is not finite, the update is
     skipped whole (the step still advances, the generator still draws) and
-    step_skipped is 1.
+    step_skipped is 1; over a model axis, where it is so on any rank.
 
     mesh: the data-parallel step (module docstring; parallel/mesh.py::
-    make_mesh), even over one rank. batch is then this rank's rows of the
-    global batch, noise (if given) this rank's rows of the global batch's
-    noise (models/network.py::shard_noise), and the metrics are the global
-    batch's. The state must be the same on every rank (parallel/mesh.py::
-    replicate), its generator seeded alike.
+    make_mesh, make_hybrid_mesh), even over one rank. batch is then this
+    data group's rows of the global batch (with this model rank's rows of
+    the canvas where it holds ``canvas_h``: parallel/mesh.py::shard_batch),
+    noise (if given) this data group's rows of the global batch's noise
+    (models/network.py::shard_noise), and the metrics are the global
+    batch's. The state must be laid out for the mesh (parallel/mesh.py::
+    shard_params), its generator seeded alike on every rank.
     """
     if model.spec != spec or spec.mode != "TRAIN":
         raise ValueError("make_train_step needs a model built from this "
@@ -302,11 +343,18 @@ def make_train_step(model: nn.Module, spec: ModelSpec, *,
         params = state.params()
         grads = list(torch.autograd.grad(total, list(params.values())))
         if mesh is not None:
+            if batch.get("canvas_h") is not None:
+                all_reduce_buckets([g for name, g in zip(params, grads)
+                                    if name.startswith("head.")], mesh,
+                                   MODEL_AXIS)
             all_reduce_buckets(grads, mesh)
         grads = dict(zip(params, grads))
         finite = None
         if nan_guard:
             finite = all_finite(metrics["total_loss"], grads.values())
+            if model_axis_size(mesh) > 1:
+                bad = psum(mesh, MODEL_AXIS)((~finite).to(torch.float32))
+                finite = psum(mesh)(bad) == 0
             metrics["step_skipped"] = 1.0 - finite.to(torch.float32)
         if lr_fn is not None:
             metrics["learning_rate"] = lr_fn(state.step)

@@ -40,7 +40,17 @@ iteration count (TPU.SUMMARY_ITERS), not each host's clock, and its val
 losses are the global batch's; a SIGTERM is agreed every TRAIN.DISPLAY
 iterations; the summaries and the in-training eval end at a barrier. The
 in-training eval runs on every rank, striped by ``test_net``, and only the
-coordinator gets the mAP. The 'model' axis raises (ROADMAP.md, Queue A).
+coordinator gets the mAP.
+
+The 'model' axis (TPU.MODEL_DEVICES > 1): the mesh is ('data', 'model')
+(``parallel/mesh.py::make_hybrid_mesh``), the data layer slices by data
+index, so the model ranks of a data group decode the same rows, and each
+batch keeps this model rank's rows of the canvas under
+TPU.SPATIAL_PARTITION (``split_canvas``); the state is laid out by
+``shard_params`` after the restore, so a snapshot of any layout resumes
+on any other; the snapshots, the best parameters and the histograms are
+the layout-free state, gathered over 'model' on every rank first; the val
+losses and the in-training eval run on the same layout.
 """
 
 from __future__ import annotations
@@ -65,10 +75,12 @@ from tf_faster_rcnn_torch.models.init import reference_init
 from tf_faster_rcnn_torch.models.network import (DTYPES, FasterRCNN,
                                                  spec_from_cfg)
 from tf_faster_rcnn_torch.parallel import dist
-from tf_faster_rcnn_torch.parallel.mesh import (MODEL_AXIS_NOT_PORTED,
-                                                data_axis_size, data_index,
-                                                make_mesh, model_axis_size,
-                                                psum, shard_params)
+from tf_faster_rcnn_torch.parallel.mesh import (data_axis_size, data_index,
+                                                gather_params, layout_name,
+                                                make_hybrid_mesh,
+                                                model_axis_size, psum,
+                                                shard_model, shard_params,
+                                                split_canvas)
 from tf_faster_rcnn_torch.utils import checkpoint as ckpt
 from tf_faster_rcnn_torch.utils.metrics import MetricsWriter
 from tf_faster_rcnn_torch.utils.tb_writer import TBEventWriter
@@ -96,7 +108,9 @@ class SolverWrapper(object):
         self.device = torch.device(device)
         self.mesh = mesh
         self._pid, self._pcount = data_index(mesh), data_axis_size(mesh)
-        self._is_coord = self._pid == 0
+        self._tp = model_axis_size(mesh) > 1
+        self._spatial = bool(cfg.TPU.SPATIAL_PARTITION)
+        self._is_coord = dist.on_coordinator()
         self._best_map = -1.0
         self._skip_streak = 0
         self._eval_model = None
@@ -173,9 +187,11 @@ class SolverWrapper(object):
         rank's rows of the global batch's noise, and the global batch's
         losses."""
         gen = torch.Generator(device=self.device).manual_seed(int(it))
+        batch = split_canvas(self.mesh, batch, self._spatial)
         out = self.model(batch["image"], batch["im_info"],
                          batch["gt_boxes"], batch["gt_valid"], generator=gen,
-                         shard=(self._pid, self._pcount))
+                         shard=(self._pid, self._pcount),
+                         canvas_h=batch.get("canvas_h"))
         reduce = psum(self.mesh)
         return global_losses(detection_losses(out, reduce), reduce)
 
@@ -193,6 +209,7 @@ class SolverWrapper(object):
             self._eval_model = FasterRCNN(self._eval_spec,
                                           device=self.device).eval()
             self._eval_model.to(DTYPES[str(cfg.TPU.PARAM_DTYPE)])
+            shard_model(self.mesh, self._eval_model, self.net_name)
             self._eval_detect_fn = make_detect_fn(
                 self._eval_model, self._eval_spec,
                 int(cfg.TPU.MAX_PER_IMAGE))
@@ -202,7 +219,8 @@ class SolverWrapper(object):
                            f"iter_{it}",
                            max_per_image=int(cfg.TPU.MAX_PER_IMAGE),
                            output_dir=out_dir,
-                           detect_fn=self._eval_detect_fn)
+                           detect_fn=self._eval_detect_fn, mesh=self.mesh)
+        params = self._full_params()
         if not self._is_coord:
             return None
         # keep only the newest eval's artifacts
@@ -217,7 +235,7 @@ class SolverWrapper(object):
             self._best_map = mean_ap
             best = os.path.join(self.output_dir,
                                 f"{cfg.TRAIN.SNAPSHOT_PREFIX}_best.pt")
-            ckpt.save_params(best, self.model)
+            ckpt.save_params(best, params)
             print(f"iter {it}: new best mAP {mean_ap:.4f} -> {best}")
         return mean_ap
 
@@ -242,10 +260,17 @@ class SolverWrapper(object):
         except Exception as e:   # a summary must not stop training
             print(f"gt image summary skipped: {e!r}")
 
-    def _write_param_histograms(self, it):
+    def _full_params(self):
+        """The model's layout-free state_dict: over a model axis, gathered
+        (a collective every rank enters)."""
+        if self._tp:
+            return gather_params(self.mesh, self.state)["params"]
+        return self.model.state_dict()
+
+    def _write_param_histograms(self, params, it):
         """Histograms of every parameter and FrozenBN array under its flax
         path (network.py:442-447), as the JAX loop tags them."""
-        tree = flax_from_state_dict(self.model.state_dict())
+        tree = flax_from_state_dict(params)
         for path, leaf in flatten_tree(tree):
             self.tb_writer.add_histogram("TRAIN/" + "/".join(path), leaf, it)
 
@@ -257,7 +282,8 @@ class SolverWrapper(object):
         ckpt.snapshot(self.output_dir, prefix, self.state,
                       {"train": self.data_layer.get_state(),
                        "val": self.data_layer_val.get_state()},
-                      extra_meta={"best_map": self._best_map})
+                      extra_meta={"best_map": self._best_map},
+                      mesh=self.mesh)
         ckpt.remove_old_snapshots(self.output_dir, prefix,
                                   int(cfg.TRAIN.SNAPSHOT_KEPT))
 
@@ -301,17 +327,18 @@ class SolverWrapper(object):
         val_batch = self.data_layer_val.forward()
         val_batch.pop("orig_hw")
         vm = {k: float(v) for k, v in self._val_losses(val_batch, it).items()}
+        params = self._full_params()
         if self._is_coord:
-            self._write_summary(m, vm, batch, it, writer)
+            self._write_summary(m, vm, batch, params, it, writer)
         dist.barrier(f"summary_{it}")
 
-    def _write_summary(self, m, vm, batch, it, writer):
+    def _write_summary(self, m, vm, batch, params, it, writer):
         writer.write(it, m, prefix="train")
         self.tb_writer.add_scalars(m, it)
         writer.write(it, vm, prefix="val")
         self.tb_writer_val.add_scalars(vm, it)
         self._write_gt_image(batch, it)
-        self._write_param_histograms(it)
+        self._write_param_histograms(params, it)
         self.tb_writer.flush()
         self.tb_writer_val.flush()
 
@@ -357,7 +384,7 @@ class SolverWrapper(object):
             prev_handler = None
         try:
             self._restore()
-            shard_params(self.mesh, self.state)
+            shard_params(self.mesh, self.state, self.net_name)
             it = self._loop(max_iters, snapshot_iters, eval_iters, writer,
                             preempted)
             if preempted:
@@ -387,7 +414,7 @@ class SolverWrapper(object):
         profile_start = it + min(10, max(max_iters - it - 1, 0))
         profiler = None
         while it < max_iters:
-            if self._pcount > 1:
+            if dist.process_count() > 1:
                 # leaving the loop must be agreed, or the other ranks wait
                 # in the next step's reduce for the one that left
                 if it % int(cfg.TRAIN.DISPLAY) == 0 and \
@@ -405,13 +432,14 @@ class SolverWrapper(object):
             timer.tic()
             batch = self.data_layer.forward()
             batch.pop("orig_hw")
-            _, metrics = self.step_fn(self.state, batch)
+            _, metrics = self.step_fn(
+                self.state, split_canvas(self.mesh, batch, self._spatial))
             it += 1
             self._check_guard(metrics, it)
             timer.toc()
 
             now = time.time()
-            if self._pcount > 1:
+            if dist.process_count() > 1:
                 # every rank enters the val losses' reduce: by the count
                 do_summary = it == 1 or (
                     int(cfg.TPU.SUMMARY_ITERS) > 0
@@ -481,12 +509,15 @@ def train_net(network_name, imdb, roidb, valroidb, output_dir, tb_dir,
     """Train a Faster R-CNN network (reference train_val.py:363-378);
     returns the final TrainState. ``valimdb`` enables the in-training
     validation mAP (TPU.EVAL_ITERS). In a process group of several ranks
-    every rank calls it, each on its device, over mesh (the 'data' mesh of
-    the group when None)."""
+    every rank calls it, each on its device, over mesh (when None, the
+    group's ('data', 'model') mesh of TPU.MODEL_DEVICES model ranks)."""
     if mesh is None and dist.process_count() > 1:
-        mesh = make_mesh()
-    if model_axis_size(mesh) > 1 or int(cfg.TPU.MODEL_DEVICES) > 1:
-        raise NotImplementedError("training with " + MODEL_AXIS_NOT_PORTED)
+        mesh = make_hybrid_mesh(int(cfg.TPU.MODEL_DEVICES))
+        spatial = ", spatial partitioning of the backbone" if (
+            model_axis_size(mesh) > 1 and cfg.TPU.SPATIAL_PARTITION) else ""
+        layout = layout_name(data_axis_size(mesh), model_axis_size(mesh))
+        print(f"Training {layout} over {dist.process_count()} ranks"
+              f"{spatial}")
     roidb = filter_roidb(roidb)
     valroidb = filter_roidb(valroidb)
     sw = SolverWrapper(network_name, imdb, roidb, valroidb, output_dir,

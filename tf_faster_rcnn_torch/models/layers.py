@@ -92,12 +92,15 @@ class FrozenBatchNorm(nn.Module):
         return x * inv.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
 
 
-def mask_valid(x, valid_hw):
+def mask_valid(x, valid_hw, row0: int = 0):
     """Zero x [B, C, H, W] at cells beyond the per-image extent valid_hw
     [B, 2] (float cell counts at x's resolution). A select, not a multiply:
-    the unmasked margin may hold inf in low precision, and 0 * inf is NaN."""
+    the unmasked margin may hold inf in low precision, and 0 * inf is NaN.
+    row0: the global index of x's first row, where x holds a rank's rows of
+    a taller map (parallel/spatial.py)."""
     _, _, h, w = x.shape
-    my = torch.arange(h, dtype=torch.float32, device=x.device) < valid_hw[:, :1]
+    my = torch.arange(row0, row0 + h, dtype=torch.float32,
+                      device=x.device) < valid_hw[:, :1]
     mx = torch.arange(w, dtype=torch.float32, device=x.device) < valid_hw[:, 1:]
     m = my[:, None, :, None] & mx[:, None, None, :]
     return torch.where(m, x, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -306,6 +306,9 @@ class FasterRCNN(nn.Module):
         mask = trainable_mask(self)
         for name, p in self.named_parameters():
             p.requires_grad_(mask[name])
+        # spatial partitioning of the head over a model group, installed by
+        # parallel/spatial.py::partition; used where a batch holds rows
+        self.spatial = None
         self.to(device)
 
     def _proposals(self, anchors, rpn_bbox, fg_scores, im_info, fw: int,
@@ -412,7 +415,8 @@ class FasterRCNN(nn.Module):
                 noise: Optional[TrainNoise] = None,
                 generator: Optional[torch.Generator] = None,
                 top_pad: Optional[torch.Tensor] = None,
-                shard: Optional[Tuple[int, int]] = None):
+                shard: Optional[Tuple[int, int]] = None,
+                canvas_h: Optional[int] = None):
         """image: [B, H, W, 3] mean-subtracted BGR on the static canvas;
         im_info: [B, 3] (h, w, scale) true extents. TRAIN only: gt_boxes
         [B, G, 5] (x1, y1, x2, y2, cls) padded, gt_valid [B, G], and the
@@ -420,14 +424,24 @@ class FasterRCNN(nn.Module):
         None; shard=(index, count) makes this batch part index of count
         equal parts of a global batch (a data-parallel rank's rows): the
         noise is then drawn for the global batch and this part's rows are
-        kept, so every rank's generator draws alike. TEST.MODE 'top' only:
-        top_pad, the pad indices of _proposals. Returns the dict of FasterRCNN.__call__; in TRAIN mode rois and
+        kept, so every rank's generator draws alike (shard takes the data
+        axis's index and size: the model ranks of a data group draw alike).
+        TEST.MODE 'top' only: top_pad, the pad indices of _proposals.
+        canvas_h: the canvas height where image holds this model rank's
+        rows of it (parallel/mesh.py::split_canvas); the head then runs
+        spatially partitioned (self.spatial) and gathers the whole feature
+        map. Returns the dict of FasterRCNN.__call__; in TRAIN mode rois and
         roi_valid are the sampled RoIs, roi_scores is None, and
         anchor_targets and proposal_targets are added."""
         s = self.spec
         train = s.mode == "TRAIN"
         a = s.num_anchors
         b, hh, ww, _ = image.shape
+        if canvas_h is not None:
+            if self.spatial is None:
+                raise ValueError("a batch of canvas rows needs spatial "
+                                 "partitioning (parallel/spatial.py)")
+            hh = int(canvas_h)
         if hh % s.feat_stride or ww % s.feat_stride:
             raise ValueError(f"canvas {hh}x{ww} is not a multiple of the "
                              f"feature stride {s.feat_stride}")
@@ -436,7 +450,10 @@ class FasterRCNN(nn.Module):
         im_info = im_info.to(torch.float32)
 
         x = image.to(s.dtype).permute(0, 3, 1, 2)
-        net_conv = self.head(x, im_info[:, :2])           # [B, C, fh, fw]
+        if canvas_h is None:
+            net_conv = self.head(x, im_info[:, :2])       # [B, C, fh, fw]
+        else:
+            net_conv = self.spatial.head(self.head, x, hh, im_info[:, :2])
         fh, fw = net_conv.shape[2], net_conv.shape[3]
         # built by each forward from the feature shape: the module keeps no
         # tensor outside its state_dict, so torch.export traces plain ops

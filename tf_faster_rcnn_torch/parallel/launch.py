@@ -7,6 +7,11 @@ processes on the CPU. The multi-host flags (``--coordinator``,
 ``--num-procs``, ``--proc-id``) make this process one rank of a run that
 spans hosts; on CUDA it drives the GPU of index proc_id modulo the host's
 GPUs, unless ``--device`` names one. A rank that fails fails the launcher.
+
+TPU.MODEL_DEVICES m above 1 lays the N ranks out as an (N / m, m) mesh
+(``parallel/mesh.py::make_hybrid_mesh``): an N that m does not divide
+exits naming both, and so do the multi-host flags ("single-host only", as
+the JAX CLIs say it).
 """
 
 from __future__ import annotations
@@ -17,7 +22,14 @@ from typing import Callable
 
 import torch
 
-__all__ = ["free_port", "launch", "local_ranks", "rank_device"]
+__all__ = ["free_port", "launch", "local_ranks", "model_devices",
+           "rank_device"]
+
+
+def _multi_host(args) -> bool:
+    return bool(args.coordinator or args.num_procs
+                or args.proc_id is not None
+                or "FRCNN_NUM_PROCS" in os.environ)
 
 
 def local_ranks(args) -> int:
@@ -25,8 +37,7 @@ def local_ranks(args) -> int:
     flags (or their FRCNN_* variables) it is one rank itself, and --devices
     above 1 is an error. Else --devices ranks (0 = every GPU, or one on the
     CPU); raises SystemExit where the GPUs are fewer."""
-    if (args.coordinator or args.num_procs or args.proc_id is not None
-            or "FRCNN_NUM_PROCS" in os.environ):
+    if _multi_host(args):
         if args.devices > 1:
             raise SystemExit(f"--devices {args.devices} starts the ranks of "
                              "one host; with the multi-host flags each "
@@ -50,17 +61,38 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(args, run: Callable):
+def model_devices(args) -> int:
+    """TPU.MODEL_DEVICES as the CLI's --cfg and --set leave it (applied to
+    the port's cfg here, as run applies them in each rank)."""
+    from tf_faster_rcnn_torch.config import cfg, cfg_from_file, cfg_from_list
+    if args.cfg_file is not None:
+        cfg_from_file(args.cfg_file)
+    if args.set_cfgs is not None:
+        cfg_from_list(args.set_cfgs)
+    return max(1, int(cfg.TPU.MODEL_DEVICES))
+
+
+def launch(args, run: Callable, model: int = 1):
     """Run a CLI's ``run(args)`` as its flags ask: here, as one rank of a
     multi-host run (the flags or their FRCNN_* variables) or alone; or in
     ``--devices`` ranks on this host, each a process of its own with
     args.coordinator, num_procs, proc_id and device set, and wait for all
     (raising if any fails; the others are then stopped). run must be a
-    module-level function of an importable module."""
+    module-level function of an importable module. model: the ranks of a
+    model group (TPU.MODEL_DEVICES, ``model_devices``), which must divide
+    the ranks of this host; above 1, single-host only."""
+    if model > 1 and _multi_host(args):
+        raise SystemExit(f"TPU.MODEL_DEVICES {model} > 1 is single-host "
+                         "only; multi-host runs use the data axis")
     n = local_ranks(args)
+    if n % model:
+        raise SystemExit(f"--devices {n}: {n} ranks do not split into model "
+                         f"groups of TPU.MODEL_DEVICES {model}")
     if n == 1:
         return run(args)
-    print(f"Running data-parallel over {n} ranks on {args.device}")
+    from tf_faster_rcnn_torch.parallel.mesh import layout_name
+    print(f"Running {layout_name(n // model, model)} over {n} ranks on "
+          f"{args.device}")
     torch.multiprocessing.spawn(
         _run_rank, args=(run, args, n, f"localhost:{free_port()}"),
         nprocs=n, join=True)

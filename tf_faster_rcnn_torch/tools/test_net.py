@@ -12,7 +12,11 @@ starts N ranks on this host, one GPU each (or N gloo processes with
 ``--device cpu``), and the multi-host flags make this process one rank of a
 run across hosts (``parallel/launch.py``): each rank detects its stripe of
 the batches, and rank 0 merges them, writes detections.pkl and evaluates.
-TPU.MODEL_DEVICES above 1 raises.
+TPU.MODEL_DEVICES m above 1 (``--devices N``, m dividing N; single-host
+only) lays the ranks out as an (N / m, m) mesh (``parallel/mesh.py``): the
+batches are striped over the N / m data groups, and the ranks of a group
+detect each batch together, the RoI head tensor parallel and, under
+TPU.SPATIAL_PARTITION, the backbone head on each rank's rows of the canvas.
 
 --model is the port's ``save_params`` file (``.pt``), a ``.msgpack`` that
 the JAX package wrote (its ``save_params`` export or a training snapshot),
@@ -37,8 +41,12 @@ from tf_faster_rcnn_torch.engine.test_engine import test_net
 from tf_faster_rcnn_torch.models.init import reference_init
 from tf_faster_rcnn_torch.models.network import FasterRCNN, spec_from_cfg
 from tf_faster_rcnn_torch.parallel import dist
-from tf_faster_rcnn_torch.parallel.launch import launch, rank_device
-from tf_faster_rcnn_torch.parallel.mesh import MODEL_AXIS_NOT_PORTED
+from tf_faster_rcnn_torch.parallel.launch import (launch, model_devices,
+                                                  rank_device)
+from tf_faster_rcnn_torch.parallel.mesh import (data_axis_size,
+                                                layout_name,
+                                                make_hybrid_mesh,
+                                                shard_model)
 from tf_faster_rcnn_torch.utils.checkpoint import load_params
 from tf_faster_rcnn_torch.utils.slim_import import load_pretrained_into
 from tf_faster_rcnn_torch.utils.tf_bundle import is_tf_checkpoint
@@ -108,7 +116,7 @@ def main(argv=None):
     args = parse_args(argv)
     print('Called with args:')
     print(args)
-    return launch(args, run)
+    return launch(args, run, model_devices(args))
 
 
 def run(args):
@@ -124,8 +132,13 @@ def run(args):
                     device=device)
     try:
         # the data axis needs no mesh here: each rank detects its stripe
-        if int(cfg.TPU.MODEL_DEVICES) > 1:
-            raise NotImplementedError(MODEL_AXIS_NOT_PORTED)
+        mesh, n_model = None, max(1, int(cfg.TPU.MODEL_DEVICES))
+        if dist.process_count() > 1 and n_model > 1:
+            mesh = make_hybrid_mesh(n_model)
+            spatial = (', spatial partitioning of the backbone'
+                       if cfg.TPU.SPATIAL_PARTITION else '')
+            print(f'Evaluating {layout_name(data_axis_size(mesh), n_model)} '
+                  f'over {dist.process_count()} ranks{spatial}')
         print('Using config:')
         pprint.pprint(cfg)
         torch.backends.cudnn.allow_tf32 = False
@@ -136,10 +149,11 @@ def run(args):
         spec = spec_from_cfg(args.net, imdb.num_classes, 'TEST')
         model = FasterRCNN(spec, device=device).eval()
         load_model_params(model, args.model, args.net)
+        shard_model(mesh, model, args.net)
 
         filename = (args.model or 'random').split('/')[-1] + args.tag
         return test_net(model, spec, imdb, filename,
-                        max_per_image=args.max_per_image)
+                        max_per_image=args.max_per_image, mesh=mesh)
     finally:
         dist.shutdown()
 

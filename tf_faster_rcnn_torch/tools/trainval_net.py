@@ -22,7 +22,11 @@ this host, one GPU each (0 = every GPU; fewer GPUs than N is an error), or N
 gloo processes with ``--device cpu``; the multi-host flags make this
 process one rank of a run across hosts (or the FRCNN_COORDINATOR,
 FRCNN_NUM_PROCS and FRCNN_PROC_ID variables). The global batch is
-TPU.IMS_PER_DEVICE times the ranks. TPU.MODEL_DEVICES above 1 raises.
+TPU.IMS_PER_DEVICE times the data groups: TPU.MODEL_DEVICES m above 1
+(m dividing the ranks; single-host only) lays the N ranks out as an (N / m,
+m) mesh, whose model groups train each batch together, the RoI head tensor
+parallel and, under TPU.SPATIAL_PARTITION, the backbone head on each
+rank's rows of the canvas (``engine/train_loop.py``).
 """
 
 import argparse
@@ -32,7 +36,8 @@ import sys
 import numpy as np
 import torch
 
-from tf_faster_rcnn_torch.parallel.launch import launch, rank_device
+from tf_faster_rcnn_torch.parallel.launch import (launch, model_devices,
+                                                  rank_device)
 
 NETS = ("vgg16", "res50", "res101", "res152", "mobile")
 
@@ -97,7 +102,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     print("Called with args:")
     print(args)
-    return launch(args, run)
+    return launch(args, run, model_devices(args))
 
 
 def run(args):
@@ -116,7 +121,7 @@ def run(args):
                     device=device)
     try:
         if dist.is_initialized():
-            print(f"Training data-parallel: rank {dist.process_index()} of "
+            print(f"Training: rank {dist.process_index()} of "
                   f"{dist.process_count()} on {device}")
         print("Using config:")
         pprint.pprint(cfg)

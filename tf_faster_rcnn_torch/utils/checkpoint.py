@@ -25,9 +25,12 @@ snapshots (train_val.py:221-240) and resumes from the newest (:155-175).
 
 In a multi-process run (``parallel/dist.py``) only the coordinator writes:
 ``save_params``, ``snapshot`` and ``remove_old_snapshots`` do nothing on the
-other ranks, which hold the same state. Every rank restores. A snapshot
-holds nothing of a rank, so one written by N ranks resumes on M at the same
-global batch.
+other ranks. Every rank restores. A snapshot holds nothing of a rank or a
+layout: over a 'model' axis, ``snapshot(..., mesh=)`` first gathers the
+tensor-parallel slices on every rank (``parallel/mesh.py::gather_params``),
+and a restore loads the whole state, which the run then lays out for its
+own mesh (``shard_params``). So one written by N ranks on any layout
+resumes on M ranks on any other, at the same global batch.
 
 Parameter files: ``save_params`` writes a model's
 state_dict with ``torch.save`` (a ``.pt`` file). ``load_params`` reads that,
@@ -119,15 +122,21 @@ def _meta_path(output_dir, prefix, step):
 
 
 def snapshot(output_dir, prefix, state, data_state: dict,
-             extra_meta: Optional[dict] = None) -> Tuple[str, str]:
+             extra_meta: Optional[dict] = None,
+             mesh=None) -> Tuple[str, str]:
     """Write a (state .pt, host-meta .pkl) snapshot pair of a TrainState;
     returns the two paths (None on a rank other than the coordinator, which
-    writes nothing)."""
+    writes nothing). mesh: the run's mesh, whose 'model' axis the state is
+    gathered over first (every rank calls)."""
+    from tf_faster_rcnn_torch.parallel.mesh import (gather_params,
+                                                    model_axis_size)
     check_backend()
+    gathered = model_axis_size(mesh) > 1
+    saved = gather_params(mesh, state) if gathered else None
     if not dist.on_coordinator():
         return None
+    saved = saved if gathered else state.state_dict()
     os.makedirs(output_dir, exist_ok=True)
-    saved = state.state_dict()
     step = saved["step"]
     for key in ("params", "trace"):
         saved[key] = {k: v.cpu() for k, v in saved[key].items()}
