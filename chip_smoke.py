@@ -198,7 +198,12 @@ Phases, in order; any failure raises and the exit code is nonzero:
    Times, in float32: each rank's step ms, its peak memory, and one step
    more with each collective synchronized: the halo exchanges, the
    feature gather, the TP reduces and the gradient reduces, each in ms
-   and as a share.
+   and as a share;
+18. NMS API: class_aware_nms ([20, 300] -> 100) and multiclass_nms
+   ([20, 300]) on image 0's per-class boxes of phase 4's detect step
+   (engine/detect.py::class_boxes): one K1 launch each, each output equal
+   to the same call through the plain versions, K1 equal to its plain
+   version on its inputs, and a row on the kernel line.
 
 Each phase from 7 on prints its wall time. The kernel line gives, beside
 each kernel's main-path fields (phase 4), its launches, graph-replay time,
@@ -1101,20 +1106,24 @@ def phase_train_times(card, state, step, batch, captured, label="train",
                       launches), ms
 
 
-def build_detect_path(dev, spec, batch=BATCH):
+def build_detect_path(dev, spec, batch=BATCH, canvas=CANVAS):
     """A detect step of spec through make_detect_fn, with phase 4's seeded
-    weights and scenes (the first `batch` of them)."""
+    weights and scenes (the first `batch` of them), on canvas: each image
+    600 x 1000 at scale 1.6 on the 608x1024 canvas, and in proportion on
+    another (tools/profile_net.py's extents)."""
     import torch
     from tf_faster_rcnn_torch.engine.test_engine import make_detect_fn
     from tf_faster_rcnn_torch.models.init import init_model
     from tf_faster_rcnn_torch.models.network import FasterRCNN
     model = FasterRCNN(spec).eval()
     init_model(model, torch.Generator().manual_seed(SEED))
-    h, w = CANVAS
-    image = synthetic_scenes(np.random.RandomState(SEED), BATCH, h, w)
+    h, w = canvas
+    image = synthetic_scenes(np.random.RandomState(SEED), max(batch, BATCH),
+                             h, w)
     image = torch.from_numpy(image[:batch]).to(dev)
-    im_info = torch.tensor([[600.0, 1000.0, 1.6]] * batch, device=dev)
-    orig_hw = torch.tensor([[375.0, 625.0]] * batch, device=dev)
+    ih, iw = float(h * 600 // 608), float(w * 1000 // 1024)
+    im_info = torch.tensor([[ih, iw, 1.6]] * batch, device=dev)
+    orig_hw = torch.tensor([[ih / 1.6, iw / 1.6]] * batch, device=dev)
     return model, make_detect_fn(model, spec), (image, im_info, orig_hw)
 
 
@@ -3464,6 +3473,57 @@ def phase_model_axis(card, dev, errors, references, eval_ref, results,
     return rows
 
 
+def phase_nms_api(card, dev, errors):
+    """Phase 18 (docstring): class_aware_nms and multiclass_nms on phase 4's
+    per-class boxes. Returns the kernel rows of the two API paths."""
+    import torch
+    from tf_faster_rcnn_torch.engine.detect import class_boxes, multiclass_nms
+    from tf_faster_rcnn_torch.ops import nms_kernels as K
+    from tf_faster_rcnn_torch.ops.nms import class_aware_nms
+    t0 = time.perf_counter()
+    model, _, (image, im_info, orig_hw) = build_detect_path(dev, build_spec())
+    with torch.inference_mode():
+        out = model(image, im_info)
+        pb, ps = class_boxes(out["rois"], out["cls_prob"], out["bbox_pred"],
+                             im_info, orig_hw, num_classes=NUM_CLASSES)
+    boxes, scores = pb[0].clone(), ps[0].clone()
+    valid = out["roi_valid"][0][None].expand_as(scores).clone()
+    del model, out, pb, ps
+    rows = {}
+    for label, fn, kw in (
+            ("class_aware_nms", class_aware_nms, dict(max_out=100)),
+            ("multiclass_nms", multiclass_nms, dict())):
+        record = {}
+        K.reset_launch_counts()
+        with nms_route(record=record):
+            got = fn(boxes, scores, valid, 0.3, **kw)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        with nms_route(plain=True):
+            want = fn(boxes, scores, valid, 0.3, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        print(f"{label} {tuple(boxes.shape)} {kw}: launches {launches}, "
+              f"output equal to its plain version: {equal}, kept "
+              f"{int(got[-1].sum())}")
+        if launches != {"nms_keep_mask_batched": 1, "batched_nms_keep": 0} \
+                or not equal:
+            raise AssertionError(f"{label}: launches {launches} or kernel "
+                                 "!= plain")
+        args, kwargs = record["nms_keep_mask_batched"]
+        check_equal(errors, "nms_keep_mask_batched",
+                    K.nms_keep_mask_batched(*args, **kwargs),
+                    K.nms_keep_mask_plain(*args, **kwargs),
+                    f"{label} path {tuple(args[0].shape)} {kwargs}")
+        rows[label] = {"nms_keep_mask_batched": kernel_row(
+            card, label, "nms_keep_mask_batched", args, kwargs,
+            launches["nms_keep_mask_batched"])}
+    torch.cuda.empty_cache()
+    print(f"phase NMS API: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "tf_faster_rcnn_torch")):
@@ -3522,6 +3582,8 @@ def main():
     print(f"phases 1-15: {time.perf_counter() - start:.1f} s")
     paths.update(phase_data_parallel(card, dev, errors, eval_ref))
     print(f"phases 1-17: {time.perf_counter() - start:.1f} s")
+    paths.update(phase_nms_api(card, dev, errors))
+    print(f"phases 1-18: {time.perf_counter() - start:.1f} s")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,

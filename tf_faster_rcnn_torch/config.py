@@ -19,9 +19,10 @@ from ast import literal_eval
 
 import numpy as np
 
-__all__ = ["AttrDict", "bucket_index", "canvas_buckets", "canvas_hw", "cfg",
-           "cfg_from_file", "cfg_from_list", "get_output_dir",
-           "get_output_tb_dir", "mixed_canvas", "reset_cfg"]
+__all__ = ["AttrDict", "STRUCTURAL_KEYS", "VESTIGIAL_KEYS", "bucket_index",
+           "canvas_buckets", "canvas_hw", "cfg", "cfg_from_file",
+           "cfg_from_list", "get_output_dir", "get_output_tb_dir",
+           "mixed_canvas", "reset_cfg"]
 
 
 class AttrDict(dict):
@@ -127,7 +128,8 @@ def _default_cfg() -> AttrDict:
 
     # The JAX package's own section, kept whole so that its YAML files load;
     # spec_from_cfg reads RPN_NMS_CAP and MAX_PER_IMAGE and refuses the
-    # SPACE_TO_DEPTH stem and compute dtypes other than float32.
+    # SPACE_TO_DEPTH stem and USE_PALLAS_NMS False (NMS always runs the
+    # CUDA kernels K1 and K2 on the card).
     C.TPU = AttrDict()
     C.TPU.CANVAS_SIZE = [0, 0]
     C.TPU.MAX_GT = 100
@@ -167,6 +169,39 @@ def reset_cfg():
     cfg.update(fresh)
 
 
+# Keys kept for YAML compatibility that no code path reads: the reference
+# inherited them from py-faster-rcnn and never reads them either (the JAX
+# package's registry, tf_faster_rcnn_tpu/config.py). Overriding one prints a
+# warning instead of a silent no-op; tests/test_torch_config.py holds every
+# other key to be read somewhere in the port.
+VESTIGIAL_KEYS = {
+    'TRAIN.BBOX_REG',            # box head + its loss are always built
+    'TRAIN.BBOX_THRESH',         # roidb-era fg threshold for bbox targets
+    'TRAIN.BBOX_NORMALIZE_TARGETS',  # only *_PRECOMPUTED is consulted
+    'TRAIN.HAS_RPN',             # RPN is structural in the e2e model
+    'TEST.HAS_RPN',              # idem (demo.py sets it; nothing reads it)
+    'TEST.SVM',                  # R-CNN-era SVM head never existed here
+    'TEST.PROPOSAL_METHOD',      # external-proposal eval era
+}
+
+# Keys the reference honours as implementation-path switches, whose
+# behaviour is structural in the port (there is only one path):
+STRUCTURAL_KEYS = {
+    'USE_E2E_TF': 'the whole pipeline always runs on the device',
+    'USE_GPU_NMS': 'NMS always runs the CUDA kernels on the card',
+}
+
+
+def _warn_if_vestigial(dotted_key):
+    if dotted_key in VESTIGIAL_KEYS:
+        print(f'[config] WARNING: {dotted_key} is accepted for reference '
+              f'YAML compatibility but no code path reads it '
+              f'(the reference ignores it too)')
+    elif dotted_key in STRUCTURAL_KEYS:
+        print(f'[config] WARNING: {dotted_key} has no effect here: '
+              f'{STRUCTURAL_KEYS[dotted_key]}')
+
+
 def _merge_a_into_b(a, b, path=""):
     """Recursive type-checked merge of dict a into AttrDict b: unknown keys
     raise KeyError, type mismatches ValueError, except that a value merged
@@ -191,6 +226,7 @@ def _merge_a_into_b(a, b, path=""):
         if isinstance(v, dict) and isinstance(b[k], dict):
             _merge_a_into_b(v, b[k], path + k + ".")
         else:
+            _warn_if_vestigial(path + k)
             b[k] = v
 
 
@@ -221,6 +257,7 @@ def cfg_from_list(cfg_list):
         assert type(value) == type(d[subkey]), (
             'type {} does not match original type {}'.format(
                 type(value), type(d[subkey])))
+        _warn_if_vestigial(k)
         d[subkey] = value
 
 

@@ -6,6 +6,9 @@ whose batch x class NMS problems all run in one launch of kernel K2
 class-score table into a [max_per_image, 6] slab with a validity mask.
 Every sort is a stable descending ``torch.sort``, so ties resolve to the
 lower index as ``lax.top_k`` resolves them.
+
+``multiclass_nms`` is one image's per-class keep mask, kept as API and as a
+test oracle; the batched postprocess is the production path.
 """
 
 from __future__ import annotations
@@ -14,9 +17,10 @@ import torch
 
 from tf_faster_rcnn_torch.ops.boxes import (BBOX_XFORM_CLIP,
                                             bbox_transform_inv, clip_boxes)
+from tf_faster_rcnn_torch.ops.nms import sorted_nms
 from tf_faster_rcnn_torch.ops.nms_kernels import batched_nms_keep
 
-__all__ = ["postprocess_detections"]
+__all__ = ["class_boxes", "postprocess_detections", "multiclass_nms"]
 
 
 def _batched_keep(sorted_boxes, sorted_valid, nms_thresh):
@@ -27,11 +31,48 @@ def _batched_keep(sorted_boxes, sorted_valid, nms_thresh):
                             plus_one=True, suppress_eq=False)
 
 
+def multiclass_nms(boxes, scores, valid, nms_thresh, *, plus_one=True,
+                   score_thresh=0.0):
+    """Per-class NMS keep mask for one image.
+
+    boxes: [C, R, 4]; scores: [C, R]; valid: [C, R]. Returns keep [C, R]
+    bool in the ORIGINAL box order: box r of class c is kept iff it is
+    valid, scores above score_thresh and survives greedy NMS among its
+    class (+1 IoU by default, suppress at iou > thresh). All classes go
+    through one K1 call (sorted_nms); the scatter back to the original order
+    makes no host sync.
+    """
+    c, r = scores.shape
+    idx, ok = sorted_nms(boxes, scores, valid & (scores > score_thresh),
+                         nms_thresh, r, plus_one=plus_one, suppress_eq=False)
+    keep = torch.zeros((c, r + 1), dtype=torch.bool, device=scores.device)
+    keep.scatter_(1, torch.where(ok, idx, r), ok)     # dropped slots: col r
+    return keep[:, :r]
+
+
 def _top(x, k):
     """lax.top_k along the last dim: values and indices, ties to the lower
     index."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def class_boxes(rois, cls_prob, bbox_pred, im_info, orig_hw, *,
+                num_classes: int, bbox_reg: bool = True):
+    """Each foreground class's boxes and scores, as the postprocess ranks
+    them: (boxes [B, K-1, R, 4] decoded, clipped to the original image,
+    scores [B, K-1, R]). Arguments as postprocess_detections'."""
+    k = num_classes
+    b, r, _ = rois.shape
+    boxes = rois / im_info[:, 2][:, None, None]
+    if bbox_reg:
+        pred = bbox_transform_inv(boxes, bbox_pred,
+                                  xform_clip=BBOX_XFORM_CLIP)
+        pred = clip_boxes(pred, orig_hw)
+    else:
+        pred = boxes.repeat(1, 1, k)
+    pb = pred.reshape(b, r, k, 4).permute(0, 2, 1, 3)[:, 1:]
+    return pb, cls_prob.permute(0, 2, 1)[:, 1:]
 
 
 def postprocess_detections(rois, roi_valid, cls_prob, bbox_pred, im_info,
@@ -50,19 +91,10 @@ def postprocess_detections(rois, roi_valid, cls_prob, bbox_pred, im_info,
     Returns (detections [B, max_per_image, 6] as (cls, score, x1, y1, x2,
     y2) in original-image coords, valid [B, max_per_image]).
     """
-    k = num_classes
     b, r, _ = rois.shape
-    kc = k - 1
-
-    boxes = rois / im_info[:, 2][:, None, None]
-    if bbox_reg:
-        pred = bbox_transform_inv(boxes, bbox_pred,
-                                  xform_clip=BBOX_XFORM_CLIP)
-        pred = clip_boxes(pred, orig_hw)
-    else:
-        pred = boxes.repeat(1, 1, k)
-    pb = pred.reshape(b, r, k, 4).permute(0, 2, 1, 3)[:, 1:]   # [B,kc,R,4]
-    ps = cls_prob.permute(0, 2, 1)[:, 1:]                      # [B,kc,R]
+    kc = num_classes - 1
+    pb, ps = class_boxes(rois, cls_prob, bbox_pred, im_info, orig_hw,
+                         num_classes=num_classes, bbox_reg=bbox_reg)
     pv = roi_valid[:, None, :] & (ps > score_thresh)
 
     g = b * kc

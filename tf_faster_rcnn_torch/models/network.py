@@ -1,11 +1,11 @@
 """The Faster R-CNN detector, as one torch module.
 
 Port of ``tf_faster_rcnn_tpu/models/network.py`` (``ModelSpec``,
-``spec_from_cfg``, ``FasterRCNN``, ``trainable_mask``) for every backbone
-(vgg16, res50/101/152, mobile): backbone head, RPN, anchor decode, proposal
-selection (NMS through kernel K1, or TEST.MODE 'top'), in TRAIN mode the two
-target samplers, RoI crop, tail, heads and, in TEST mode, bbox
-un-normalization. The public layouts are the JAX ones: the image is NHWC
+``spec_from_cfg``, ``FasterRCNN``, ``extract_head``, ``trainable_mask``) for
+every backbone (vgg16, res50/101/152, mobile): backbone head, RPN, anchor
+decode, proposal selection (NMS through kernel K1, or TEST.MODE 'top'), in
+TRAIN mode the two target samplers, RoI crop, tail, heads and, in TEST mode,
+bbox un-normalization. The public layouts are the JAX ones: the image is NHWC
 [B, H, W, 3] and the output dict has the keys and shapes of
 ``FasterRCNN.__call__``. Inside, the convolutions run in NCHW.
 
@@ -42,7 +42,7 @@ from tf_faster_rcnn_torch.ops.roi_align import roi_crop_pool
 from tf_faster_rcnn_torch.parallel.dist import local_slice
 
 __all__ = ["ModelSpec", "FasterRCNN", "TrainNoise", "draw_noise",
-           "shard_noise", "spec_from_cfg", "trainable_mask"]
+           "extract_head", "shard_noise", "spec_from_cfg", "trainable_mask"]
 
 BACKBONES = ("vgg16", "res50", "res101", "res152", "mobile")
 RESNETS = ("res50", "res101", "res152")
@@ -120,6 +120,12 @@ def spec_from_cfg(backbone: str, num_classes: int, mode: str) -> ModelSpec:
         raise NotImplementedError(
             "TPU.SPACE_TO_DEPTH is a TPU stem workaround; the port runs the "
             "plain 7x7 stem (ROADMAP.md, Rules of the port)")
+    if not cfg.TPU.USE_PALLAS_NMS:
+        raise NotImplementedError(
+            "TPU.USE_PALLAS_NMS False: the port always runs NMS through its "
+            "CUDA kernels on the card (their plain versions are the CPU's "
+            "route and the tests' reference); ROADMAP.md, 'Not ported, by "
+            "decision'")
     if cfg.POOLING_MODE != "crop":
         raise NotImplementedError(
             f"POOLING_MODE {cfg.POOLING_MODE!r}: only 'crop' exists")
@@ -513,3 +519,19 @@ class FasterRCNN(nn.Module):
             "bbox_pred": bbox_pred,          # [B, R, 4K]
         })
         return out
+
+
+def extract_head(model: FasterRCNN, image, valid_hw=None):
+    """The head's feature maps alone (the reference's Network.extract_head),
+    for activation-parity checks against converted checkpoints.
+
+    image: [B, H, W, 3], cast to the spec's compute dtype; valid_hw:
+    optional [B, 2] per-image pixel extents for the margin masking (None:
+    the whole canvas is image). Returns [B, fh, fw, C] in the compute dtype,
+    the JAX function's layout. The module holds its parameters, so there is
+    no params argument.
+    """
+    x = image.to(model.spec.dtype).permute(0, 3, 1, 2)
+    if valid_hw is not None:
+        valid_hw = valid_hw.to(torch.float32)
+    return model.head(x, valid_hw).permute(0, 2, 3, 1)

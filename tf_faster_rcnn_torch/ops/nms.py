@@ -15,7 +15,8 @@ import torch
 
 from tf_faster_rcnn_torch.ops.nms_kernels import nms_keep_mask_batched
 
-__all__ = ["nms_keep_mask", "select_top_k_mask", "sorted_nms"]
+__all__ = ["nms_keep_mask", "select_top_k_mask", "sorted_nms",
+           "class_aware_nms"]
 
 _NEG = -1.0e10
 
@@ -81,3 +82,15 @@ def sorted_nms(boxes, scores, valid, iou_threshold, max_out, *,
                          suppress_eq=suppress_eq, max_keep=max_out)
     sel, out_valid = select_top_k_mask(keep, max_out)
     return torch.gather(order, -1, sel), out_valid
+
+
+def class_aware_nms(boxes, scores, valid, iou_threshold, max_out, *,
+                    plus_one=True, suppress_eq=False):
+    """Per-class NMS over a leading class axis, every class in one K1 call.
+
+    boxes [C, N, 4], scores [C, N], valid [C, N] -> (indices [C, max_out],
+    valid [C, max_out]). The default +1 IoU is the reference's test-time
+    per-class nms().
+    """
+    return sorted_nms(boxes, scores, valid, iou_threshold, max_out,
+                      plus_one=plus_one, suppress_eq=suppress_eq)

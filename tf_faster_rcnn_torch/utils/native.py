@@ -1,14 +1,15 @@
 """ctypes loader for the host NMS and IoU ops of ``native/nms_oracle.cpp``.
 
 A copy of ``tf_faster_rcnn_tpu/utils/native.py`` (``nms_cpu``,
-``bbox_overlaps_cpu``) that builds the same C++ source with g++ on first use
+``bbox_overlaps_cpu``, and the numpy oracle ``py_cpu_nms``) that builds the same C++ source with g++ on first use
 into the port's own ignored build directory, ``tf_faster_rcnn_torch/csrc/
 build/``, so that the two packages never write one shared library. The build
 goes to a temporary name and is renamed into place, so concurrent processes
 see the whole library or none. Nothing here runs at import time.
 
 These are host-side helpers: eval-time re-NMS of pickled detections
-(``engine/test_engine.py::apply_nms``) and the IoU of dataset code.
+(``engine/test_engine.py::apply_nms``), the IoU of dataset code, and an
+oracle for the NMS tests.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import threading
 
 import numpy as np
 
-__all__ = ["nms_cpu", "bbox_overlaps_cpu"]
+__all__ = ["nms_cpu", "bbox_overlaps_cpu", "py_cpu_nms"]
 
 _ROOT = osp.abspath(osp.join(osp.dirname(__file__), "..", ".."))
 _SRC = osp.join(_ROOT, "native", "nms_oracle.cpp")
@@ -96,3 +97,31 @@ def bbox_overlaps_cpu(boxes: np.ndarray, query: np.ndarray,
             query.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), k,
             int(plus_one), out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
     return out
+
+
+def py_cpu_nms(dets: np.ndarray, thresh: float) -> list:
+    """Vectorized numpy greedy NMS oracle (+1 areas, suppress at iou > thresh).
+
+    Semantics of the reference's pure-python fallback
+    (lib/nms/py_cpu_nms.py:10-38); kept as an independent second oracle for
+    kernel tests.
+    """
+    x1, y1, x2, y2 = dets[:, 0], dets[:, 1], dets[:, 2], dets[:, 3]
+    scores = dets[:, 4]
+    areas = (x2 - x1 + 1) * (y2 - y1 + 1)
+    order = scores.argsort()[::-1]
+    keep = []
+    while order.size > 0:
+        i = order[0]
+        keep.append(int(i))
+        xx1 = np.maximum(x1[i], x1[order[1:]])
+        yy1 = np.maximum(y1[i], y1[order[1:]])
+        xx2 = np.minimum(x2[i], x2[order[1:]])
+        yy2 = np.minimum(y2[i], y2[order[1:]])
+        w = np.maximum(0.0, xx2 - xx1 + 1)
+        h = np.maximum(0.0, yy2 - yy1 + 1)
+        inter = w * h
+        ovr = inter / (areas[i] + areas[order[1:]] - inter)
+        inds = np.where(ovr <= thresh)[0]
+        order = order[inds + 1]
+    return keep
