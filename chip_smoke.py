@@ -203,7 +203,20 @@ Phases, in order; any failure raises and the exit code is nonzero:
    ([20, 300]) on image 0's per-class boxes of phase 4's detect step
    (engine/detect.py::class_boxes): one K1 launch each, each output equal
    to the same call through the plain versions, K1 equal to its plain
-   version on its inputs, and a row on the kernel line.
+   version on its inputs, and a row on the kernel line;
+19. the measurement tools (tf_faster_rcnn_torch/tools/bench.py,
+   bench_train.py, bench_sweep.py), in process at the full bench workload
+   with fewer iterations (TOOL_*): bench.measure, which runs its detect step
+   (res101 bf16, B = 8, 6000 -> 300) and then bench_train.measure's train
+   step (6000 -> 2000), with K1 and K2 launched exactly once for each step
+   the tools ran (K1 at max_keep 300 on each detect step and 2000 on each
+   train step, K2 on each detect step), the keys of the JAX bench.py's
+   line, and the bench's first detections finite, [8, 100, 6], and equal
+   bit for bit to make_detect_fn's on the same model and inputs;
+   bench_sweep.measure at B = 32 (K2 at [640, 300]), once a step; and
+   bench_sweep.py --batches 8 in a subprocess, its last line with the JAX
+   sweep's keys. K1 on the bench's train inputs and K2 on the sweep's,
+   each equal to its plain version, are two rows of the kernel line.
 
 Each phase from 7 on prints its wall time. The kernel line gives, beside
 each kernel's main-path fields (phase 4), its launches, graph-replay time,
@@ -326,6 +339,15 @@ MA_BACKBONES = ("res101", "vgg16")
 MA_STEPS = 2
 MA_SHARE = 0.99
 MA_PREFIX = "ma"
+# phase 19: the measurement tools at the bench workload, with fewer
+# iterations than theirs (detect 3 + 20 x 4, train 2 + 10 x 3), the sweep's
+# largest batch (K2 at [32 x 20, 300]) and one CLI run of the sweep
+TOOL_WARMUP, TOOL_ITERS, TOOL_WINDOWS, TOOL_TRAIN_ITERS = 1, 2, 2, 2
+SWEEP_BATCH = 32
+SWEEP_CLI = ["--batches", str(BATCH), "--iters", "2"]
+SWEEP_KEYS = {"net", "batch", "s2d", "cfg", "images_per_sec"}
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline",
+              "train_images_per_sec", "train_ms_per_step"}
 REPLACES = {
     "nms_keep_mask_batched": "tf_faster_rcnn_tpu/ops/pallas_nms.py:55",
     "batched_nms_keep": "tf_faster_rcnn_tpu/ops/pallas_nms.py:149",
@@ -3524,6 +3546,127 @@ def phase_nms_api(card, dev, errors):
     return rows
 
 
+def phase_tools(card, dev, errors):
+    """Phase 19 (docstring): the measurement tools' path. Returns the kernel
+    rows of the bench's train path and of the sweep's largest batch."""
+    import torch
+    from tf_faster_rcnn_torch.engine.test_engine import make_detect_fn
+    from tf_faster_rcnn_torch.ops import nms_kernels as K
+    from tf_faster_rcnn_torch.tools import bench, bench_sweep, bench_train
+    t0 = time.perf_counter()
+    workload, first, log = bench.detect_workload, {}, []
+
+    def recording(*args, **kwargs):
+        """bench.detect_workload whose detect keeps its first output."""
+        spec, model, detect, inputs = workload(*args, **kwargs)
+
+        def call(*a):
+            out = detect(*a)
+            if not first:
+                first.update(out=tuple(t.clone() for t in out), spec=spec,
+                             model=model, inputs=inputs)
+            return out
+        return spec, model, call, inputs
+
+    bench.detect_workload = recording
+    try:
+        K.reset_launch_counts()
+        with nms_route(log=log):
+            result = bench.measure(iters=TOOL_ITERS, windows=TOOL_WINDOWS,
+                                   warmup=TOOL_WARMUP,
+                                   train_iters=TOOL_TRAIN_ITERS)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+    finally:
+        bench.detect_workload = workload
+    detect_steps = TOOL_WARMUP + TOOL_ITERS * TOOL_WINDOWS
+    train_steps = bench_train.WARMUP + TOOL_TRAIN_ITERS * bench_train.WINDOWS
+    k1_caps = [kw.get("max_keep") for name, _, kw in log
+               if name == "nms_keep_mask_batched"]
+    print(f"tools: bench.measure {json.dumps(result)}; {detect_steps} detect "
+          f"and {train_steps} train steps, launches {launches}, K1 caps "
+          f"{k1_caps} [{card}]")
+    want = {"nms_keep_mask_batched": detect_steps + train_steps,
+            "batched_nms_keep": detect_steps}
+    if launches != want or k1_caps != ([300] * detect_steps
+                                       + [2000] * train_steps):
+        raise AssertionError(f"tools: launches {launches}, want {want}; K1 "
+                             f"caps {k1_caps}")
+    if set(result) != BENCH_KEYS or not all(
+            np.isfinite(result[k]) and result[k] > 0
+            for k in BENCH_KEYS - {"metric", "unit"}):
+        raise AssertionError(f"tools: bench.measure returned {result}")
+    det, dv = first["out"]
+    with torch.inference_mode():
+        ref = make_detect_fn(first["model"], first["spec"])(*first["inputs"])
+    torch.cuda.synchronize()
+    equal = torch.equal(det, ref[0]) and torch.equal(dv, ref[1])
+    per_image = dv.sum(dim=1).tolist()
+    print(f"tools: the bench's first detections {tuple(det.shape)}, finite "
+          f"{bool(torch.isfinite(det).all())}, valid per image {per_image}, "
+          f"equal to make_detect_fn's bit for bit {equal}")
+    if not (equal and tuple(det.shape) == (BATCH, 100, 6)
+            and bool(torch.isfinite(det).all()) and min(per_image) >= 1):
+        raise AssertionError("tools: the bench's detections")
+    _, args, kwargs = [c for c in log if c[0] == "nms_keep_mask_batched"][-1]
+    del first, log, det, dv, ref
+    rows = {}
+    check_equal(errors, "nms_keep_mask_batched",
+                K.nms_keep_mask_batched(*args, **kwargs),
+                K.nms_keep_mask_plain(*args, **kwargs),
+                f"bench train path {tuple(args[0].shape)} {kwargs}")
+    rows["bench train bf16"] = {"nms_keep_mask_batched": kernel_row(
+        card, "bench train bf16", "nms_keep_mask_batched", args, kwargs,
+        launches["nms_keep_mask_batched"] - detect_steps)}
+    del args, kwargs
+    torch.cuda.empty_cache()
+
+    # the sweep's largest batch, in process
+    record = {}
+    K.reset_launch_counts()
+    with nms_route(record=record):
+        line = bench_sweep.measure(SWEEP_BATCH, 1, warmup=1, reps=1)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    print(f"tools: bench_sweep.measure B={SWEEP_BATCH} {json.dumps(line)}, "
+          f"launches {launches} [{card}]")
+    if launches != {"nms_keep_mask_batched": 2, "batched_nms_keep": 2} \
+            or set(line) != SWEEP_KEYS or not line["images_per_sec"] > 0:
+        raise AssertionError(f"tools: the sweep at B={SWEEP_BATCH}")
+    args, kwargs = record["batched_nms_keep"]
+    check_equal(errors, "batched_nms_keep",
+                K.batched_nms_keep(*args, **kwargs),
+                K.batched_nms_keep_plain(*args, **kwargs),
+                f"sweep path {tuple(args[0].shape)} {kwargs}")
+    rows[f"sweep B={SWEEP_BATCH} bf16"] = {"batched_nms_keep": kernel_row(
+        card, f"sweep B={SWEEP_BATCH} bf16", "batched_nms_keep", args, kwargs,
+        launches["batched_nms_keep"])}
+    del record, args, kwargs
+    torch.cuda.empty_cache()
+
+    # the sweep's CLI, as a user runs it
+    root = os.path.dirname(os.path.abspath(__file__))
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join("tf_faster_rcnn_torch", "tools",
+                                      "bench_sweep.py"), *SWEEP_CLI],
+        cwd=root, env=CALLER_ENV, capture_output=True, text=True, timeout=300)
+    if proc.returncode:
+        raise AssertionError(f"bench_sweep.py exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    last = json.loads(lines[-1])
+    print(f"tools: bench_sweep.py {' '.join(SWEEP_CLI)} in "
+          f"{time.perf_counter() - t:.1f} s (process start and build "
+          f"included); its card line {lines[0]!r}; last line {lines[-1]}")
+    if set(last) != SWEEP_KEYS or lines[0] != card or (
+            last["net"], last["batch"], last["s2d"], last["cfg"]) != (
+            "res101", BATCH, False, None) or not last["images_per_sec"] > 0:
+        raise AssertionError("tools: bench_sweep.py's output")
+    print(f"phase tools: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "tf_faster_rcnn_torch")):
@@ -3584,6 +3727,8 @@ def main():
     print(f"phases 1-17: {time.perf_counter() - start:.1f} s")
     paths.update(phase_nms_api(card, dev, errors))
     print(f"phases 1-18: {time.perf_counter() - start:.1f} s")
+    paths.update(phase_tools(card, dev, errors))
+    print(f"phases 1-19: {time.perf_counter() - start:.1f} s")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
