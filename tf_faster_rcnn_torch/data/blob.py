@@ -38,6 +38,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from tf_faster_rcnn_torch.utils.trace import span
+
 __all__ = ["read_image_bgr", "image_size", "im_scale", "scaled_hw",
            "upload", "prep_im_for_blob", "place_on_canvas", "prep_batch",
            "batch_image_shape", "write_ppm"]
@@ -211,21 +213,22 @@ def prep_batch(ims, canvas, device, target_sizes, max_size, pixel_means,
     device, after the upload), then prepared at target_sizes[i] capped by
     max_size. pixel_means: the three BGR means, a tensor on device. Scales
     and extents come from the shapes, on the host."""
-    b = len(ims)
-    images = torch.zeros((b, int(canvas[0]), int(canvas[1]), 3),
-                         dtype=torch.float32, device=device)
-    im_info = np.zeros((b, 3), np.float32)
-    orig_hw = np.zeros((b, 2), np.float32)
-    for i, im in enumerate(ims):
-        orig_hw[i] = (im.shape[0], im.shape[1])
-        x = upload(im, device)
-        if flipped is not None and flipped[i]:
-            x = torch.flip(x, dims=[1])
-        prepped, scale = prep_im_for_blob(x, pixel_means, target_sizes[i],
-                                          max_size)
-        h, w = place_on_canvas(images[i], prepped)
-        im_info[i] = (h, w, scale)
-    return images, upload(im_info, device), upload(orig_hw, device)
+    with span("data.prep"):
+        b = len(ims)
+        images = torch.zeros((b, int(canvas[0]), int(canvas[1]), 3),
+                             dtype=torch.float32, device=device)
+        im_info = np.zeros((b, 3), np.float32)
+        orig_hw = np.zeros((b, 2), np.float32)
+        for i, im in enumerate(ims):
+            orig_hw[i] = (im.shape[0], im.shape[1])
+            x = upload(im, device)
+            if flipped is not None and flipped[i]:
+                x = torch.flip(x, dims=[1])
+            prepped, scale = prep_im_for_blob(x, pixel_means,
+                                              target_sizes[i], max_size)
+            h, w = place_on_canvas(images[i], prepped)
+            im_info[i] = (h, w, scale)
+        return images, upload(im_info, device), upload(orig_hw, device)
 
 
 def batch_image_shape(b: int, canvas_hw: Tuple[int, int]):

@@ -53,6 +53,7 @@ from tf_faster_rcnn_torch.parallel.mesh import (data_axis_size, data_index,
                                                 model_index, split_canvas)
 from tf_faster_rcnn_torch.utils.native import nms_cpu
 from tf_faster_rcnn_torch.utils.timer import Timer
+from tf_faster_rcnn_torch.utils.trace import span
 
 __all__ = ["make_detect_fn", "detect_step", "im_detect", "test_net",
            "apply_nms"]
@@ -88,15 +89,18 @@ def detect_step(model, spec, max_per_image: int, score_thresh: float,
     and the postprocess at spec's settings. model is the FasterRCNN or a
     callable with its forward's signature; canvas_h, where given, goes to
     the forward (image then holds rows of the canvas)."""
-    if canvas_h is None:
-        out = model(image, im_info, top_pad=top_pad)
-    else:
-        out = model(image, im_info, top_pad=top_pad, canvas_h=canvas_h)
-    return postprocess_detections(
-        out["rois"], out["roi_valid"], out["cls_prob"], out["bbox_pred"],
-        im_info, orig_hw, num_classes=spec.num_classes,
-        max_per_image=max_per_image, nms_thresh=spec.nms_thresh,
-        score_thresh=score_thresh, bbox_reg=spec.bbox_reg)
+    with span("detect.step", step=True):
+        if canvas_h is None:
+            out = model(image, im_info, top_pad=top_pad)
+        else:
+            out = model(image, im_info, top_pad=top_pad, canvas_h=canvas_h)
+        with span("detect.postprocess"):
+            return postprocess_detections(
+                out["rois"], out["roi_valid"], out["cls_prob"],
+                out["bbox_pred"], im_info, orig_hw,
+                num_classes=spec.num_classes, max_per_image=max_per_image,
+                nms_thresh=spec.nms_thresh, score_thresh=score_thresh,
+                bbox_reg=spec.bbox_reg)
 
 
 def _pixel_means(device) -> torch.Tensor:

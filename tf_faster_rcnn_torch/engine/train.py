@@ -71,6 +71,7 @@ from tf_faster_rcnn_torch.parallel.mesh import (MODEL_AXIS,
                                                 data_axis_size, data_index,
                                                 model_axis_size, model_index,
                                                 psum, tp_dim)
+from tf_faster_rcnn_torch.utils.trace import span
 
 __all__ = ["Optimizer", "TrainState", "all_finite", "create_train_state",
            "lr_schedule", "make_train_step", "scale_recipe", "train_loss"]
@@ -337,29 +338,36 @@ def make_train_step(model: nn.Module, spec: ModelSpec, *,
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              noise: Optional[TrainNoise] = None):
-        total, metrics = train_loss(model, batch, weight_decay, bias_decay,
-                                    noise, state.generator,
-                                    mobile_weight_decay, regu_depth, mesh)
-        params = state.params()
-        grads = list(torch.autograd.grad(total, list(params.values())))
-        if mesh is not None:
-            if batch.get("canvas_h") is not None:
-                all_reduce_buckets([g for name, g in zip(params, grads)
-                                    if name.startswith("head.")], mesh,
-                                   MODEL_AXIS)
-            all_reduce_buckets(grads, mesh)
-        grads = dict(zip(params, grads))
-        finite = None
-        if nan_guard:
-            finite = all_finite(metrics["total_loss"], grads.values())
-            if model_axis_size(mesh) > 1:
-                bad = psum(mesh, MODEL_AXIS)((~finite).to(torch.float32))
-                finite = psum(mesh)(bad) == 0
-            metrics["step_skipped"] = 1.0 - finite.to(torch.float32)
-        if lr_fn is not None:
-            metrics["learning_rate"] = lr_fn(state.step)
-        state.tx.apply(params, grads, state.trace, state.count, finite)
-        state.step.add_(1)
-        return state, metrics
+        with span("train.step", step=True):
+            with span("train.forward"):
+                total, metrics = train_loss(
+                    model, batch, weight_decay, bias_decay, noise,
+                    state.generator, mobile_weight_decay, regu_depth, mesh)
+            with span("train.backward"):
+                params = state.params()
+                grads = list(torch.autograd.grad(total,
+                                                 list(params.values())))
+                if mesh is not None:
+                    if batch.get("canvas_h") is not None:
+                        all_reduce_buckets(
+                            [g for name, g in zip(params, grads)
+                             if name.startswith("head.")], mesh, MODEL_AXIS)
+                    all_reduce_buckets(grads, mesh)
+                grads = dict(zip(params, grads))
+            with span("train.update"):
+                finite = None
+                if nan_guard:
+                    finite = all_finite(metrics["total_loss"], grads.values())
+                    if model_axis_size(mesh) > 1:
+                        bad = psum(mesh, MODEL_AXIS)(
+                            (~finite).to(torch.float32))
+                        finite = psum(mesh)(bad) == 0
+                    metrics["step_skipped"] = 1.0 - finite.to(torch.float32)
+                if lr_fn is not None:
+                    metrics["learning_rate"] = lr_fn(state.step)
+                state.tx.apply(params, grads, state.trace, state.count,
+                               finite)
+                state.step.add_(1)
+            return state, metrics
 
     return step

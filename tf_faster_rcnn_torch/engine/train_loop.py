@@ -24,7 +24,11 @@ TensorBoard event files in train and val sibling dirs
 (``utils/tb_writer.py``): scalar losses, the parameters' histograms under
 their flax paths (``utils/weights.py::flax_from_state_dict``, so runs of both
 packages share tags), and the GT-boxes image. ``TPU.PROFILE_DIR`` writes a
-``torch.profiler`` trace of five steps.
+``torch.profiler`` trace of five steps, with the port's stage spans
+(``utils/trace.py``) turned on for those steps and off after them, so the
+trace shows ``train.step`` and its ``train.forward``, ``train.backward`` and
+``train.update``, the ``model.*`` stages and ``data.prep`` beside the
+kernels.
 
 Data parallelism (the JAX loop's multi-process branches): with a process
 group (``parallel/dist.py``) every rank runs this loop on its own device
@@ -82,6 +86,7 @@ from tf_faster_rcnn_torch.parallel.mesh import (data_axis_size, data_index,
                                                 shard_model, shard_params,
                                                 split_canvas)
 from tf_faster_rcnn_torch.utils import checkpoint as ckpt
+from tf_faster_rcnn_torch.utils import trace
 from tf_faster_rcnn_torch.utils.metrics import MetricsWriter
 from tf_faster_rcnn_torch.utils.tb_writer import TBEventWriter
 from tf_faster_rcnn_torch.utils.timer import Timer
@@ -480,10 +485,12 @@ def _start_profiler(device):
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     profiler = torch.profiler.profile(activities=acts)
     profiler.start()
+    trace.enable()
     return profiler
 
 
 def _stop_profiler(profiler, profile_dir, it):
+    trace.disable()
     profiler.stop()
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, f"trace_iter_{it}.json")

@@ -40,6 +40,7 @@ from tf_faster_rcnn_torch.ops.boxes import (BBOX_XFORM_CLIP,
 from tf_faster_rcnn_torch.ops.nms import sorted_nms
 from tf_faster_rcnn_torch.ops.roi_align import roi_crop_pool
 from tf_faster_rcnn_torch.parallel.dist import local_slice
+from tf_faster_rcnn_torch.utils.trace import span
 
 __all__ = ["ModelSpec", "FasterRCNN", "TrainNoise", "draw_noise",
            "extract_head", "shard_noise", "spec_from_cfg", "trainable_mask"]
@@ -455,32 +456,39 @@ class FasterRCNN(nn.Module):
             raise ValueError("TRAIN mode needs gt_boxes and gt_valid")
         im_info = im_info.to(torch.float32)
 
-        x = image.to(s.dtype).permute(0, 3, 1, 2)
-        if canvas_h is None:
-            net_conv = self.head(x, im_info[:, :2])       # [B, C, fh, fw]
-        else:
-            net_conv = self.spatial.head(self.head, x, hh, im_info[:, :2])
+        with span("model.head"):
+            x = image.to(s.dtype).permute(0, 3, 1, 2)
+            if canvas_h is None:
+                net_conv = self.head(x, im_info[:, :2])   # [B, C, fh, fw]
+            else:
+                net_conv = self.spatial.head(self.head, x, hh,
+                                             im_info[:, :2])
         fh, fw = net_conv.shape[2], net_conv.shape[3]
-        # built by each forward from the feature shape: the module keeps no
-        # tensor outside its state_dict, so torch.export traces plain ops
-        anchors = anchor_grid_on(fh, fw, image.device, s.feat_stride,
-                                 s.anchor_scales, s.anchor_ratios)
         n_anchors = fh * fw * a
 
-        rpn = F.relu(self.rpn_conv(net_conv))
-        # NHWC before the flatten: anchors run in (y, x, a) order
-        cls = self.rpn_cls_score(rpn).permute(0, 2, 3, 1)
-        rpn_deltas = self.rpn_bbox_pred(rpn).permute(0, 2, 3, 1)
-        # channel c < A is the bg logit and c + A the fg logit of anchor c
-        score_pairs = torch.stack([cls[..., :a], cls[..., a:]], dim=-1)
-        score_pairs = score_pairs.reshape(b, n_anchors, 2).to(torch.float32)
-        fg_prob = torch.softmax(score_pairs, dim=-1)[..., 1]
-        rpn_deltas = rpn_deltas.reshape(b, n_anchors, 4).to(torch.float32)
-
-        # proposal selection is not differentiated (and K1 has no backward)
-        rois, roi_scores, roi_valid = self._proposals(
-            anchors, rpn_deltas.detach(), fg_prob.detach(), im_info, fw,
-            top_pad)
+        with span("model.rpn"):
+            # built by each forward from the feature shape: the module keeps
+            # no tensor outside its state_dict, so torch.export traces plain
+            # ops
+            anchors = anchor_grid_on(fh, fw, image.device, s.feat_stride,
+                                     s.anchor_scales, s.anchor_ratios)
+            rpn = F.relu(self.rpn_conv(net_conv))
+            # NHWC before the flatten: anchors run in (y, x, a) order
+            cls = self.rpn_cls_score(rpn).permute(0, 2, 3, 1)
+            rpn_deltas = self.rpn_bbox_pred(rpn).permute(0, 2, 3, 1)
+            # channel c < A is the bg logit and c + A the fg logit of
+            # anchor c
+            score_pairs = torch.stack([cls[..., :a], cls[..., a:]], dim=-1)
+            score_pairs = score_pairs.reshape(b, n_anchors, 2).to(
+                torch.float32)
+            fg_prob = torch.softmax(score_pairs, dim=-1)[..., 1]
+            rpn_deltas = rpn_deltas.reshape(b, n_anchors, 4).to(
+                torch.float32)
+            # proposal selection is not differentiated (and K1 has no
+            # backward)
+            rois, roi_scores, roi_valid = self._proposals(
+                anchors, rpn_deltas.detach(), fg_prob.detach(), im_info, fw,
+                top_pad)
         out = {
             "rpn_cls_score": score_pairs,    # [B, N, 2]
             "rpn_bbox_pred": rpn_deltas,     # [B, N, 4]
@@ -488,34 +496,38 @@ class FasterRCNN(nn.Module):
         }
         dropout = None
         if train:
-            vgg = s.backbone == "vgg16"
-            if noise is None:
-                index, count = shard or (0, 1)
-                n_rois = rois.shape[1] + (gt_boxes.shape[1] if s.use_gt
-                                          else 0)
-                noise = draw_noise(generator, b * count, n_anchors, n_rois,
-                                   image.device,
-                                   b * count * s.roi_batch_size if vgg else 0)
-                if count > 1:
-                    noise = shard_noise(noise, index, count)
-            if vgg and noise.dropout is None:
-                raise ValueError("vgg16 TRAIN needs the dropout keep masks "
-                                 "in noise.dropout")
-            dropout = noise.dropout
-            at, pt = self._targets(anchors, rois, roi_valid, im_info,
-                                   gt_boxes, gt_valid, noise)
+            with span("model.targets"):
+                vgg = s.backbone == "vgg16"
+                if noise is None:
+                    index, count = shard or (0, 1)
+                    n_rois = rois.shape[1] + (gt_boxes.shape[1] if s.use_gt
+                                              else 0)
+                    noise = draw_noise(
+                        generator, b * count, n_anchors, n_rois,
+                        image.device,
+                        b * count * s.roi_batch_size if vgg else 0)
+                    if count > 1:
+                        noise = shard_noise(noise, index, count)
+                if vgg and noise.dropout is None:
+                    raise ValueError("vgg16 TRAIN needs the dropout keep "
+                                     "masks in noise.dropout")
+                dropout = noise.dropout
+                at, pt = self._targets(anchors, rois, roi_valid, im_info,
+                                       gt_boxes, gt_valid, noise)
             rois, roi_valid, roi_scores = pt.rois, pt.valid, None
             out["anchor_targets"] = at
             out["proposal_targets"] = pt
 
-        cls_score, bbox_pred = self._roi_heads(net_conv, rois, im_info,
-                                               dropout)
+        with span("model.roi_heads"):
+            cls_score, bbox_pred = self._roi_heads(net_conv, rois, im_info,
+                                                   dropout)
+            cls_prob = torch.softmax(cls_score, dim=-1)
         out.update({
             "rois": rois,                    # [B, R, 4]
             "roi_valid": roi_valid,          # [B, R]
             "roi_scores": roi_scores,        # [B, R], None in TRAIN
             "cls_score": cls_score,          # [B, R, K]
-            "cls_prob": torch.softmax(cls_score, dim=-1),
+            "cls_prob": cls_prob,
             "bbox_pred": bbox_pred,          # [B, R, 4K]
         })
         return out

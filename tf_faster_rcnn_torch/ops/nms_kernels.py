@@ -29,9 +29,10 @@ no Optional: K1's "no cap" is ``max_keep = N + 1``. The wrappers check shape,
 dtype, device and contiguity (on fake tensors too); the 16-byte alignment of
 the boxes is checked in the ``cuda`` implementation, on real tensors.
 
-Each wrapper counts its kernel launches in a plain integer attribute,
-``<wrapper>.launches``, bumped in the ``cuda`` implementation, so a launch
-from an exported program counts too; the plain versions count nothing.
+The ``cuda`` implementations count their kernel launches on the port's
+counters (``utils/trace.py``) as ``k1.launches`` and ``k2.launches``, so a
+launch from an exported program counts too; the plain versions count
+nothing. ``launch_counts`` and ``reset_launch_counts`` read and zero them.
 """
 
 from __future__ import annotations
@@ -39,12 +40,16 @@ from __future__ import annotations
 import torch
 
 from tf_faster_rcnn_torch.ops.boxes import bbox_overlaps
+from tf_faster_rcnn_torch.utils import trace
 
 __all__ = ["nms_keep_mask_batched", "batched_nms_keep",
            "nms_keep_mask_plain", "batched_nms_keep_plain",
            "reset_launch_counts", "launch_counts"]
 
 _BLOCK = 128    # row block of the plain K1, as in ops/nms.py
+# each wrapper's launch counter (utils/trace.py)
+_COUNTERS = {"nms_keep_mask_batched": "k1.launches",
+             "batched_nms_keep": "k2.launches"}
 
 
 def _check(boxes, valid, name):
@@ -70,7 +75,7 @@ def _check(boxes, valid, name):
 def _launch_keep(wrapper, boxes, valid, thresh, plus_one, suppress_eq,
                  max_keep):
     """keep [G, N] from one launch of frcnn_nms_keep, at most max_keep boxes
-    kept per instance; counts the launch on ``wrapper.launches`` (an empty
+    kept per instance; counts the launch on the wrapper's counter (an empty
     input launches nothing)."""
     from tf_faster_rcnn_torch.utils.build import get_lib
     name = wrapper.__name__
@@ -100,7 +105,7 @@ def _launch_keep(wrapper, boxes, valid, thresh, plus_one, suppress_eq,
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "
                            f"cudaError {err}")
-    wrapper.launches += 1
+    trace.count(_COUNTERS[name])
     return keep
 
 
@@ -180,10 +185,6 @@ def batched_nms_keep(boxes, valid, thresh, *, plus_one=False,
                                             bool(plus_one), bool(suppress_eq))
 
 
-nms_keep_mask_batched.launches = 0
-batched_nms_keep.launches = 0
-
-
 # -- the operators ----------------------------------------------------------
 
 @torch.library.custom_op("frcnn::nms_keep_mask", mutates_args=(),
@@ -227,10 +228,10 @@ def _(boxes, valid, thresh, plus_one, suppress_eq):
 
 
 def reset_launch_counts():
-    nms_keep_mask_batched.launches = 0
-    batched_nms_keep.launches = 0
+    trace.zero(*_COUNTERS.values())
 
 
 def launch_counts() -> dict:
-    return {"nms_keep_mask_batched": nms_keep_mask_batched.launches,
-            "batched_nms_keep": batched_nms_keep.launches}
+    """Each wrapper's kernel launches since the last reset."""
+    counts = trace.counts()
+    return {w: counts.get(c, 0) for w, c in _COUNTERS.items()}
