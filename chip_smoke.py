@@ -13,6 +13,26 @@ Phases, in order; any failure raises and the exit code is nonzero:
    equality of the boolean masks: random boxes, the cases of edge_cases()
    that a wrong quick reject or a broken chain would fail, K1 at the TRAIN
    shape [8, 12000] -> 2000 and K2 at the COCO shape [640, 1000];
+3b. epilogue (K3, frcnn::conv_epilogue, csrc/epilogue.cu): the kernel
+   against its plain composition (ops/epilogue.py), y and every gradient
+   (x, the residual, a bias) bit for bit: each mode (FrozenBN folded in the
+   kernel, prefolded bf16 buffers, a bias, the mask alone; with or without
+   a dense or a stride-2 residual, ReLU and mask) in bf16, float32 and
+   float64 at [3, 64, 19, 27], and two float64 cases in NCHW (cuDNN's
+   float64 layout, which conv_epilogue copies to channels-last); then the
+   cells' largest epilogues (res101's
+   stem [8, 64, 304, 512], block1's conv3 with its residual [8, 256, 152,
+   256] and its stride-2 shortcut at [8, 256, 76, 128], the tail's conv3
+   [2400, 2048, 7, 7], vgg16's conv1_1 [8, 64, 608, 1024] with its bias and
+   mask; the stem in float32 too), each direction timed (CUDA events)
+   beside its byte bound at 3.35e12 B/s and the plain forward; then
+   res101's and vgg16's heads in bf16 on the 608x1024 canvas with
+   per-image extents, and res101's tail on 2,400 crops, against the
+   modules' former composition (each conv with its bias, FrozenBN, ReLU,
+   residual add and mask as PyTorch ops) under deterministic cuDNN: the
+   output and the heads' parameter gradients bit for bit, and one
+   epilogue launch a fused epilogue (96 in res101's head, 17 in vgg16's,
+   10 in the tail);
 4. main path: the ResNet-101 TEST detect step (batch 8, 608x1024 canvas,
    21 classes, 6000 -> 300 proposals, float32, seeded random weights) through
    make_detect_fn. Both kernels must have launched; the detections must be
@@ -43,7 +63,9 @@ Phases, in order; any failure raises and the exit code is nonzero:
    and K1's graph-replay time, plain time and bound on the step's inputs;
 7. bf16 detect: phase 4's step at TPU.COMPUTE_DTYPE bfloat16 (the bench's
    configuration, bench.py and tools/bench_train.py) on the same weights:
-   both kernels launched, each equal to its plain version on this path's
+   both kernels launched (and, in phases 7, 9 and 10, the conv epilogue
+   once a fused epilogue: epilogues_a_step), each equal to its plain
+   version on this path's
    inputs, finite [8, 100, 6] detections; step time, images/s and peak
    memory; the drift from phase 4's float32 detections (the share matched
    by a bf16 detection of the same class at IoU >= 0.9), printed, not gated;
@@ -651,6 +673,367 @@ def phase_kernels(dev):
     return err
 
 
+# K3, the conv epilogue (ops/epilogue.py): the cells' largest epilogues, each
+# (label, shape, dtype, mode); mode: "bn" | "bias" | "mask", "+res" a dense
+# residual, "+sres" one strided by 2 (a stride-2 identity shortcut),
+# "+relu", "+mask"
+EPILOGUE_CASES = (
+    ("res101 stem", (8, 64, 304, 512), "bfloat16", "bn+relu+mask"),
+    ("res101 block1 conv3", (8, 256, 152, 256), "bfloat16", "bn+res+relu"),
+    ("res101 block1 unit_3 conv3", (8, 256, 76, 128), "bfloat16",
+     "bn+sres+relu"),
+    ("res101 tail conv3", (2400, 2048, 7, 7), "bfloat16", "bn+res+relu"),
+    ("vgg16 conv1_1", (8, 64, 608, 1024), "bfloat16", "bias+relu+mask"),
+    ("res101 stem f32", (8, 64, 304, 512), "float32", "bn+relu+mask"),
+)
+# every mode at a small shape, in each dtype the kernel takes
+EPILOGUE_SMALL = (3, 64, 19, 27)
+EPILOGUE_MODES = tuple(
+    f"{affine}{res}{relu}{mask}"
+    for affine in ("bn", "prefold", "bias", "mask")
+    for res in ("", "+res", "+sres") for relu in ("", "+relu")
+    for mask in ("", "+mask")
+    if not (affine == "mask" and (res or relu or not mask)))
+EPILOGUE_ITERS = 20
+EPILOGUE_CROPS = 2400     # the res101 detect step's RoIs: 8 images x 300
+
+
+def epilogues_a_step(backbone):
+    """frcnn::conv_epilogue launches in one forward: a ResNet's stem, pool
+    mask, three a unit and a shortcut a block, the head's final mask, the
+    RPN conv and block4 on the crops; vgg16's 13 convs, 4 pool masks and
+    the RPN conv; MobileNet's RPN conv alone (its layers keep the plain
+    ops)."""
+    from tf_faster_rcnn_torch.models.resnet_v1 import BLOCK_UNITS
+    if backbone.startswith("res"):
+        units = BLOCK_UNITS[int(backbone[3:])]
+        return 2 + 3 * sum(units[:3]) + 3 + 1 + 1 + 3 * units[3] + 1
+    return {"vgg16": 13 + 4 + 1, "mobile": 1}[backbone]
+
+
+def epilogue_inputs(dev, shape, dtype, mode, seed, layout="channels_last"):
+    """One case's operands on the card, in layout (channels-last, or NCHW
+    as cuDNN returns float64 convs): x, the constants (FrozenBN's float32
+    buffers, prefolded bf16 buffers, or a bias), the residual (its leaf
+    too, for a strided one), valid_hw with margins in both H and W, and the
+    output's gradient."""
+    import torch
+    from tf_faster_rcnn_torch.ops.epilogue import float32_eps, frozen_bn_fold
+    cl = getattr(torch, layout + ("" if layout == "channels_last"
+                                  else "_format"))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, c, h, w = shape
+    dt = getattr(torch, dtype)
+
+    def draw(*size, scale=1.0):
+        return (torch.randn(size, device=dev, generator=gen) * scale).to(dt)
+
+    x = draw(*shape).contiguous(memory_format=cl).requires_grad_()
+    kw, leaves = {}, {"x": x}
+    if mode.startswith(("bn", "prefold")):
+        mean = torch.randn(c, device=dev, generator=gen) * 0.1
+        var = torch.rand(c, device=dev, generator=gen) + 0.5
+        gamma = torch.randn(c, device=dev, generator=gen)
+        beta = torch.randn(c, device=dev, generator=gen) * 0.1
+        if mode.startswith("bn"):
+            kw = dict(scale=gamma, shift=beta, mean=mean, var=var,
+                      eps=float32_eps(1e-5))
+        else:
+            inv, sh = frozen_bn_fold(*(t.to(torch.bfloat16) for t in
+                                       (mean, var, gamma, beta)), 1e-5)
+            kw = dict(scale=inv.to(dt), shift=sh.to(dt))
+    elif mode.startswith("bias"):
+        kw = dict(shift=draw(c, scale=0.1).requires_grad_())
+        leaves["shift"] = kw["shift"]
+    if "+res" in mode:
+        kw["residual"] = draw(*shape).contiguous(
+            memory_format=cl).requires_grad_()
+        leaves["residual"] = kw["residual"]
+    elif "+sres" in mode:
+        base = draw(b, c, 2 * h, 2 * w).contiguous(
+            memory_format=cl).requires_grad_()
+        kw["residual"] = base[:, :, ::2, ::2]
+        leaves["residual"] = base
+    kw["relu"] = "+relu" in mode
+    if mode.endswith("mask"):
+        rows = torch.randint(h // 2, h + 1, (b,), device=dev, generator=gen)
+        cols = torch.randint(w // 2, w + 1, (b,), device=dev, generator=gen)
+        rows[0], cols[0] = h, w                       # one image whole
+        # a view with a row stride of 3, as the detect step's im_info[:, :2]
+        kw["valid_hw"] = torch.stack([rows, cols, rows], 1).float()[:, :2]
+    grad = draw(*shape).contiguous(memory_format=cl)
+    return kw, leaves, grad
+
+
+def same_bits(a, b):
+    """Equal bit for bit, NaN payloads aside; both None counts as equal."""
+    import torch
+    if a is None or b is None:
+        return a is None and b is None
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return bool(((a.view(ints) == b.view(ints))
+                 | (a.isnan() & b.isnan())).all())
+
+
+def epilogue_case(dev, label, shape, dtype, mode, seed, times=False,
+                  layout="channels_last"):
+    """The kernel against the plain composition on one case: y and every
+    gradient bit for bit; with times, each direction's device time (CUDA
+    events, mean of EPILOGUE_ITERS after a warm-up) beside its byte bound
+    and the plain composition's time. Returns the row."""
+    import torch
+    from tf_faster_rcnn_torch.ops.epilogue import (conv_epilogue,
+                                                   conv_epilogue_plain)
+    kw, leaves, grad = epilogue_inputs(dev, shape, dtype, mode, seed, layout)
+    args = [leaves["x"], kw.get("scale"), kw.get("shift"), kw.get("mean"),
+            kw.get("var"), kw.get("eps", 0.0), kw.get("residual"),
+            kw.get("valid_hw"), kw["relu"]]
+    names = list(leaves)
+    outs = []
+    for fn in (lambda: conv_epilogue(leaves["x"], **kw),
+               lambda: conv_epilogue_plain(*args)):
+        y = fn()
+        outs.append((y.detach(), torch.autograd.grad(
+            y, [leaves[n] for n in names], grad)))
+    torch.cuda.synchronize()
+    (y, grads), (y0, grads0) = outs
+    equal = {"y": same_bits(y, y0)}
+    equal.update({f"grad_{n}": same_bits(g, g0)
+                  for n, g, g0 in zip(names, grads, grads0)})
+    row = {"case": label, "shape": list(shape), "dtype": dtype, "mode": mode,
+           "equal": equal}
+    if not all(equal.values()):
+        diff = float((y.double() - y0.double()).abs().max())
+        raise AssertionError(f"epilogue {label} {shape} {dtype} {mode}: "
+                             f"kernel != plain {equal}, |y - y0| {diff}")
+    if times:
+        row.update(epilogue_times(kw, leaves["x"], grad, y, args))
+    return row
+
+
+def epilogue_times(kw, x, grad, y, args):
+    """Forward and backward device ms, byte bounds and shares at 3.35e12
+    B/s, and the plain composition's forward ms."""
+    import torch
+    from tf_faster_rcnn_torch.ops.epilogue import conv_epilogue_plain
+    ep = torch.ops.frcnn
+    x = x.detach()
+    fargs = [x] + args[1:]
+    size = x.numel() * x.element_size()
+    relu = kw["relu"]
+    res = kw.get("residual") is not None
+    consts = sum(t.numel() * t.element_size() for t in args[1:5]
+                 if t is not None)
+    fwd_bytes = size * (2 + res) + consts
+    scale, mean, var = args[1], args[3], args[4]
+    want_gs = res and scale is not None
+    bwd_bytes = size * (2 + relu + want_gs) + consts
+    with torch.no_grad():
+        fwd = timed(lambda: ep.conv_epilogue.default(*fargs),
+                    iters=EPILOGUE_ITERS)
+        bwd = timed(lambda: ep.conv_epilogue_backward.default(
+            grad, y if relu else None, scale, mean, var, args[5], args[7],
+            want_gs), iters=EPILOGUE_ITERS)
+        plain = timed(lambda: conv_epilogue_plain(*fargs), iters=5)
+    out = {}
+    for key, ms, nbytes in (("fwd", fwd, fwd_bytes), ("bwd", bwd, bwd_bytes)):
+        bound_ms = nbytes / HBM_BYTES_S * 1e3
+        out.update({f"{key}_ms": ms, f"{key}_bytes": nbytes,
+                    f"{key}_bound_ms": bound_ms,
+                    f"{key}_share": bound_ms / ms})
+    out["plain_fwd_ms"] = plain
+    return out
+
+
+def former_head(head, x, valid_hw):
+    """A backbone head as the port ran it before its epilogues were one
+    operator: each conv with its bias, then FrozenBatchNorm.forward, the
+    ReLU, the residual add and mask_valid as PyTorch ops of their own."""
+    import torch.nn.functional as F
+    from tf_faster_rcnn_torch.models import vgg16
+    from tf_faster_rcnn_torch.models.layers import mask_valid, shrink_valid
+
+    def mask(t, vhw):
+        return t if vhw is None else mask_valid(t, vhw)
+
+    if isinstance(head, vgg16.VGG16Head):
+        for i, (reps, _, name) in enumerate(vgg16._CFG):
+            for r in range(reps):
+                x = mask(F.relu(getattr(head, f"{name}_{r + 1}")(x)),
+                         valid_hw)
+            if i < len(vgg16._CFG) - 1:
+                x = F.max_pool2d(x, 2, 2, ceil_mode=True)
+                if valid_hw is not None:
+                    valid_hw = shrink_valid(valid_hw, 2)
+                x = mask(x, valid_hw)
+            if name == "conv2":
+                x = x.detach()
+        return x
+    if valid_hw is not None:
+        valid_hw = shrink_valid(valid_hw, 2)
+    x = mask(F.relu(head.conv1_bn(head.conv1(x))), valid_hw)
+    x = F.max_pool2d(F.pad(x, (1, 1, 1, 1)), 3, 2)
+    if valid_hw is not None:
+        valid_hw = shrink_valid(valid_hw, 2)
+    x = mask(x, valid_hw).detach()
+    for b, s in enumerate(head.block_strides):
+        x = former_block(getattr(head, f"block{b + 1}"), x, valid_hw)
+        if valid_hw is not None:
+            valid_hw = shrink_valid(valid_hw, s)
+        if b + 1 <= head.fixed_blocks:
+            x = x.detach()
+    return mask(x, valid_hw)
+
+
+def former_block(block, x, valid_hw=None):
+    """A ResNet block of Bottlenecks as the port ran it before (former_head)."""
+    import torch.nn.functional as F
+    from tf_faster_rcnn_torch.models.layers import mask_valid, shrink_valid
+
+    def conv_bn(u, t):
+        t = u.bn(u.conv(t))
+        return F.relu(t) if u.relu else t
+
+    for u, s in enumerate(block.strides):
+        unit = getattr(block, f"unit_{u + 1}")
+        if unit.shortcut is not None:
+            shortcut = conv_bn(unit.shortcut, x)
+        elif unit.stride == 1:
+            shortcut = x
+        else:
+            shortcut = x[:, :, ::unit.stride, ::unit.stride]
+        r = conv_bn(unit.conv1, x)
+        if valid_hw is not None:
+            r = mask_valid(r, valid_hw)
+        x = F.relu(shortcut + conv_bn(unit.conv3, conv_bn(unit.conv2, r)))
+        if valid_hw is not None:
+            valid_hw = shrink_valid(valid_hw, s)
+    return x
+
+
+def epilogue_modules(card, dev):
+    """The backbones through the kernel against former_head, in bf16 on
+    the bench's canvas with per-image extents: res101's head (and its
+    trainable parameters' gradients) and its tail on 2,400 crops, vgg16's
+    head (and gradients), all bit for bit under deterministic cuDNN; the
+    launches counted against one a fused epilogue."""
+    import torch
+    from tf_faster_rcnn_torch.models import resnet_v1, vgg16
+    from tf_faster_rcnn_torch.models.init import init_model
+    from tf_faster_rcnn_torch.ops import epilogue
+    from tf_faster_rcnn_torch.utils import trace
+    cl = torch.channels_last
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    image = torch.randn((BATCH,) + CANVAS + (3,), device=dev,
+                        generator=gen).permute(0, 3, 1, 2)
+    # the detect step's view im_info[:, :2] (rows 3 apart)
+    valid_hw = torch.tensor([IM_HW + (1.0,)] + [
+        [600.0 - 40 * i, 1000.0 - 90 * i, 1.0] for i in range(1, BATCH)],
+        device=dev)[:, :2]
+    heads = {"res101": resnet_v1.ResNetV1Head(101, 1, torch.bfloat16),
+             "vgg16": vgg16.VGG16Head(torch.bfloat16)}
+    # epilogues a forward: res101's stem, pool mask, three per unit, the
+    # shortcuts and the final mask; vgg16's 13 convs and 4 pool masks
+    want = {"res101": 2 + 3 * 30 + 3 + 1, "vgg16": 13 + 4}
+    rows = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, head in heads.items():
+            head = head.to(dev)
+            init_model(head, torch.Generator().manual_seed(SEED))
+            params = [p for p in head.parameters() if p.requires_grad]
+            got = []
+            for fn in (head, lambda x, v: former_head(head, x, v)):
+                trace.zero(epilogue.LAUNCHES)
+                y = fn(image.to(torch.bfloat16), valid_hw)
+                launches = trace.counts().get(epilogue.LAUNCHES, 0)
+                g = torch.randn(y.shape, device=dev,
+                                generator=torch.Generator(device=dev)
+                                .manual_seed(SEED + 1)).to(y.dtype)
+                got.append((y.detach(), torch.autograd.grad(
+                    y, params, g.contiguous(memory_format=cl),
+                    allow_unused=True), launches))
+            torch.cuda.synchronize()
+            (y, grads, n), (y0, grads0, n0) = got
+            equal = same_bits(y, y0) and all(
+                same_bits(a, b) for a, b in zip(grads, grads0))
+            used = sum(g is not None for g in grads)
+            rows[name] = {"equal": equal, "launches": n,
+                          "former_launches": n0, "gradients": used}
+            print(f"epilogue {name} head bf16 {tuple(image.shape)}: output "
+                  f"and {used} gradients bit-equal to the former "
+                  f"composition {equal}; epilogue launches {n} (want "
+                  f"{want[name]}), former {n0} [{card}]")
+            if not equal or n != want[name] or n0 != 0:
+                raise AssertionError(f"epilogue: the {name} head")
+            del got, y, grads, y0, grads0
+        tail = resnet_v1.ResNetV1Tail(101, torch.bfloat16).to(dev)
+        init_model(tail, torch.Generator().manual_seed(SEED))
+        crops = torch.randn((EPILOGUE_CROPS, 7, 7, 1024), device=dev,
+                            generator=gen).to(torch.bfloat16)
+        with torch.no_grad():
+            trace.zero(epilogue.LAUNCHES)
+            y = tail(crops)
+            n = trace.counts().get(epilogue.LAUNCHES, 0)
+            y0 = former_block(tail.block4,
+                              crops.permute(0, 3, 1, 2)).mean(dim=(2, 3))
+        torch.cuda.synchronize()
+        equal = same_bits(y, y0)
+        rows["res101 tail"] = {"equal": equal, "launches": n}
+        print(f"epilogue res101 tail bf16 {tuple(crops.shape)}: bit-equal "
+              f"{equal}, launches {n} (want 10) [{card}]")
+        if not equal or n != 10:
+            raise AssertionError("epilogue: the res101 tail")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_epilogue(card, dev):
+    """Phase 3b (docstring): K3 against the plain composition, every mode
+    in every dtype at a small shape and the cells' largest epilogues at
+    theirs, forward and backward bit for bit and timed; then the backbones
+    against their former composition. Returns the kernel line's entry."""
+    import torch
+    t0 = time.perf_counter()
+    n = 0
+    for dtype in ("bfloat16", "float32", "float64"):
+        for i, mode in enumerate(EPILOGUE_MODES):
+            epilogue_case(dev, "small", EPILOGUE_SMALL, dtype, mode, SEED + i)
+            n += 1
+    # float64 in NCHW, as cuDNN returns float64 convs: conv_epilogue copies
+    # x, the residual and the gradient to the kernel's layout
+    for mode in ("bn+res+relu+mask", "bias+sres+relu"):
+        epilogue_case(dev, "nchw", EPILOGUE_SMALL, "float64", mode, SEED,
+                      layout="contiguous")
+        n += 1
+    print(f"epilogue: {n} small cases ({len(EPILOGUE_MODES)} modes x 3 "
+          f"dtypes at {list(EPILOGUE_SMALL)}, 2 in float64 NCHW) bit-equal, "
+          "forward and backward")
+    rows = []
+    for i, (label, shape, dtype, mode) in enumerate(EPILOGUE_CASES):
+        row = epilogue_case(dev, label, shape, dtype, mode, SEED + i,
+                            times=True)
+        rows.append(row)
+        print(f"time epilogue {label} {shape} {dtype} {mode}: forward "
+              f"{row['fwd_ms']:.4f} ms (bound {row['fwd_bound_ms']:.4f}, "
+              f"share {row['fwd_share']:.3f}), backward "
+              f"{row['bwd_ms']:.4f} ms (bound {row['bwd_bound_ms']:.4f}, "
+              f"share {row['bwd_share']:.3f}), plain forward "
+              f"{row['plain_fwd_ms']:.4f} ms; bit-equal [{card}]")
+        torch.cuda.empty_cache()
+    modules = epilogue_modules(card, dev)
+    print(f"phase epilogue: {time.perf_counter() - t0:.1f} s")
+    return {"name": "conv_epilogue", "route": "cuda",
+            "source": "tf_faster_rcnn_torch/csrc/epilogue.cu",
+            "replaces": None, "small_cases": n, "cases": rows,
+            "modules": modules}
+
+
 def train_shape_inputs(dev):
     """K1's TRAIN-mode shape (RPN 12000 -> 2000, ROADMAP slice 2), B = 8,
     on random score-sorted boxes."""
@@ -1169,23 +1552,30 @@ def phase_detect_path(card, dev, label, spec, errors, batch=BATCH,
     from tf_faster_rcnn_torch.ops import nms_kernels as K
     from tf_faster_rcnn_torch.ops.anchors import anchor_grid_on
     t0 = time.perf_counter()
+    from tf_faster_rcnn_torch.ops import epilogue
+    from tf_faster_rcnn_torch.utils import trace
     model, detect, inputs = build_detect_path(dev, spec, batch)
     record = {}
     K.reset_launch_counts()
+    trace.zero(epilogue.LAUNCHES)
     with nms_route(record=record):
         det, dv = detect(*inputs)
     torch.cuda.synchronize()
     launches = K.launch_counts()
+    fused = trace.counts().get(epilogue.LAUNCHES, 0)
     top = spec.test_mode == "top"
     print(f"{label} path: {spec.backbone} {spec.compute_dtype} B={batch} "
           f"{CANVAS[0]}x{CANVAS[1]} {spec.num_classes} classes, proposals "
           + (f"top {spec.rpn_top_n}" if top else
              f"{spec.rpn_pre_nms_top_n}->{spec.rpn_post_nms_top_n}")
-          + f"; launches {launches}")
+          + f"; launches {launches}, conv epilogue {fused}")
     want_k1 = 0 if top else 1
     if launches != {"nms_keep_mask_batched": want_k1, "batched_nms_keep": 1}:
         raise AssertionError(f"{label}: launches {launches}, want K1 "
                              f"{want_k1} and K2 1")
+    if fused != epilogues_a_step(spec.backbone):
+        raise AssertionError(f"{label}: {fused} conv epilogue launches, want "
+                             f"{epilogues_a_step(spec.backbone)}")
     if tuple(det.shape) != (batch, spec.max_per_image, 6) \
             or not bool(torch.isfinite(det).all()):
         raise AssertionError(f"{label}: detections {tuple(det.shape)} or "
@@ -3684,7 +4074,8 @@ def main():
     dev = torch.device("cuda", 0)
     phase_build()
     errors = phase_kernels(dev)
-    print(f"phases 1-3: {time.perf_counter() - start:.1f} s")
+    epilogue_row = phase_epilogue(card, dev)
+    print(f"phases 1-3b: {time.perf_counter() - start:.1f} s")
     spec, model, detect, inputs = build_main_path(dev)
     launches, captured, f32_det = phase_main_path(spec, model, detect, inputs,
                                                   errors)
@@ -3738,7 +4129,8 @@ def main():
          "bound_by": times[name][3], "library_ms": None,
          "paths": {path: rows[name] for path, rows in paths.items()
                    if name in rows}}
-        for name in ("nms_keep_mask_batched", "batched_nms_keep")]}))
+        for name in ("nms_keep_mask_batched", "batched_nms_keep")]
+        + [epilogue_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -15,7 +15,10 @@ Port of ``tf_faster_rcnn_tpu/models/layers.py``:
   under TPU.PARAM_DTYPE as the JAX package casts them); the per-element
   affine in the activation's dtype.
 * ``mask_valid`` / ``shrink_valid``: per-image extent masking on a padded
-  canvas, which makes the features independent of the canvas size.
+  canvas, which makes the features independent of the canvas size;
+* ``ConvSame.with_epilogue``: the conv, then its bias, FrozenBN, residual
+  add, ReLU and mask in one ``frcnn::conv_epilogue`` pass
+  (``ops/epilogue.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tf_faster_rcnn_torch.ops.epilogue import (conv_epilogue, float32_eps,
+                                               frozen_bn_fold, mask_valid)
 
 __all__ = ["same_padding", "ConvSame", "Dense", "FrozenBatchNorm",
            "mask_valid", "shrink_valid"]
@@ -56,6 +62,27 @@ class ConvSame(nn.Conv2d):
         bias = None if self.bias is None else self.bias.to(dt)
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
+    def with_epilogue(self, x, *, bn: "FrozenBatchNorm" = None,
+                      residual=None, relu: bool = False, valid_hw=None):
+        """mask(relu(residual + bn(conv(x)))), each term optional, the
+        terms after the conv in one frcnn::conv_epilogue pass. valid_hw:
+        [B, 2] cell extents at the output's resolution, or None."""
+        dt = self.compute_dtype
+        x = x.to(dt)
+        bias = None if self.bias is None else self.bias.to(dt)
+        if bias is not None and bn is not None:
+            raise ValueError("with_epilogue: a conv with a bias and a BN")
+        # On the card PyTorch adds a conv's bias in a pass of its own after
+        # cuDNN's conv; the epilogue takes that add over, bit for bit. On
+        # the CPU the conv adds it inside its sums, and there it stays.
+        inner = bias if x.device.type == "cpu" else None
+        y = self._conv_forward(x, self.weight.to(dt), inner)
+        kw = {} if bn is None else bn.epilogue_operands(dt)
+        if bias is not None and inner is None:
+            kw["shift"] = bias
+        return conv_epilogue(y, residual=residual, relu=relu,
+                             valid_hw=valid_hw, **kw)
+
 
 class Dense(nn.Linear):
     """nn.Linear computing in compute_dtype (flax Dense with dtype=)."""
@@ -83,27 +110,22 @@ class FrozenBatchNorm(nn.Module):
                                                   dtype=torch.float32))
 
     def forward(self, x):
-        # in the buffers' dtype, as the JAX fold runs in its params' dtype;
-        # epsilon rounded to it first, as JAX rounds a weakly typed scalar
-        eps = float(torch.tensor(self.epsilon, dtype=self.var.dtype))
-        inv = self.scale / torch.sqrt(self.var + eps)
-        shift = self.bias - self.mean * inv
+        inv, shift = frozen_bn_fold(self.mean, self.var, self.scale,
+                                    self.bias, self.epsilon)
         shape = (1, -1) + (1,) * (x.ndim - 2)
         return x * inv.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
 
-
-def mask_valid(x, valid_hw, row0: int = 0):
-    """Zero x [B, C, H, W] at cells beyond the per-image extent valid_hw
-    [B, 2] (float cell counts at x's resolution). A select, not a multiply:
-    the unmasked margin may hold inf in low precision, and 0 * inf is NaN.
-    row0: the global index of x's first row, where x holds a rank's rows of
-    a taller map (parallel/spatial.py)."""
-    _, _, h, w = x.shape
-    my = torch.arange(row0, row0 + h, dtype=torch.float32,
-                      device=x.device) < valid_hw[:, :1]
-    mx = torch.arange(w, dtype=torch.float32, device=x.device) < valid_hw[:, 1:]
-    m = my[:, None, :, None] & mx[:, None, None, :]
-    return torch.where(m, x, torch.zeros((), dtype=x.dtype, device=x.device))
+    def epilogue_operands(self, dtype: torch.dtype) -> dict:
+        """conv_epilogue's operands for activations of dtype: float32
+        buffers as they are, folded in the kernel; buffers of another dtype
+        folded here in their dtype (TPU.PARAM_DTYPE bfloat16)."""
+        if self.var.dtype == torch.float32:
+            return {"scale": self.scale, "shift": self.bias,
+                    "mean": self.mean, "var": self.var,
+                    "eps": float32_eps(self.epsilon)}
+        inv, shift = frozen_bn_fold(self.mean, self.var, self.scale,
+                                    self.bias, self.epsilon)
+        return {"scale": inv.to(dtype), "shift": shift.to(dtype)}
 
 
 def shrink_valid(valid_hw, stride: int):

@@ -28,7 +28,6 @@ import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from tf_faster_rcnn_torch.models import mobilenet_v1, resnet_v1, vgg16
@@ -472,7 +471,7 @@ class FasterRCNN(nn.Module):
             # ops
             anchors = anchor_grid_on(fh, fw, image.device, s.feat_stride,
                                      s.anchor_scales, s.anchor_ratios)
-            rpn = F.relu(self.rpn_conv(net_conv))
+            rpn = self.rpn_conv.with_epilogue(net_conv, relu=True)
             # NHWC before the flatten: anchors run in (y, x, a) order
             cls = self.rpn_cls_score(rpn).permute(0, 2, 3, 1)
             rpn_deltas = self.rpn_bbox_pred(rpn).permute(0, 2, 3, 1)

@@ -9,7 +9,10 @@ path joined with dots (``utils/weights.py``).
 * head: blocks 1-3 with strides (2, 2, 1), each block's stride on its LAST
   unit, so conv4 ends at stride 16;
 * tail: block4 (stride 1) on the RoI crops, then a spatial mean;
-* every conv computes in the compute dtype (``layers.ConvSame``);
+* every conv computes in the compute dtype (``layers.ConvSame``), and its
+  BN, the residual add, the ReLU and the mask run after it as one
+  ``frcnn::conv_epilogue`` pass (``ConvSame.with_epilogue``), as do the
+  masks after the stem's pool and at the head's end;
 * freezing: every BN is frozen (buffers), the stem always and the first
   ``fixed_blocks`` blocks too. The head detaches at that boundary, as the
   JAX head stops the gradient there, so no backward pass runs through the
@@ -26,7 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from tf_faster_rcnn_torch.models.layers import (ConvSame, FrozenBatchNorm,
-                                                mask_valid, shrink_valid)
+                                                shrink_valid)
+from tf_faster_rcnn_torch.ops.epilogue import conv_epilogue
 
 __all__ = ["Bottleneck", "ResNetV1Head", "ResNetV1Tail", "BLOCK_UNITS",
            "trainable_filter"]
@@ -45,9 +49,13 @@ class _ConvBN(nn.Module):
         self.bn = FrozenBatchNorm(out_ch)
         self.relu = relu
 
-    def forward(self, x):
-        x = self.bn(self.conv(x))
-        return F.relu(x) if self.relu else x
+    def forward(self, x, valid_hw=None, residual=None):
+        """relu(bn(conv(x))) (relu only if self.relu), or, with a residual,
+        relu(residual + bn(conv(x))); then the mask where valid_hw is
+        given. One epilogue pass after the conv."""
+        return self.conv.with_epilogue(
+            x, bn=self.bn, residual=residual,
+            relu=self.relu or residual is not None, valid_hw=valid_hw)
 
 
 class Bottleneck(nn.Module):
@@ -82,11 +90,8 @@ class Bottleneck(nn.Module):
             shortcut = x
         else:
             shortcut = x[:, :, ::self.stride, ::self.stride]
-        r = self.conv1(x)
-        if valid_hw is not None:
-            r = mask_valid(r, valid_hw)
-        r = self.conv3(self.conv2(r))
-        return F.relu(shortcut + r)
+        r = self.conv2(self.conv1(x, valid_hw))
+        return self.conv3(r, residual=shortcut)
 
 
 class _Block(nn.Module):
@@ -134,15 +139,15 @@ class ResNetV1Head(nn.Module):
     def forward(self, x, valid_hw=None):
         """x: [B, 3, H, W]; valid_hw: [B, 2] per-image PIXEL extents, or None
         for an input that is all image. Returns [B, 1024, H/16, W/16]."""
-        x = F.relu(self.conv1_bn(self.conv1(x)))
         if valid_hw is not None:
             valid_hw = shrink_valid(valid_hw, 2)
-            x = mask_valid(x, valid_hw)
+        x = self.conv1.with_epilogue(x, bn=self.conv1_bn, relu=True,
+                                     valid_hw=valid_hw)
         # zero pad then VALID pool: max_pool2d(padding=1) would pad with -inf
         x = F.max_pool2d(F.pad(x, (1, 1, 1, 1)), 3, 2)
         if valid_hw is not None:
             valid_hw = shrink_valid(valid_hw, 2)
-            x = mask_valid(x, valid_hw)
+            x = conv_epilogue(x, valid_hw=valid_hw)
         x = x.detach()                      # the stem is always frozen
         for b, s in enumerate(self.block_strides):
             x = getattr(self, f"block{b + 1}")(x, valid_hw)
@@ -151,7 +156,7 @@ class ResNetV1Head(nn.Module):
             if b + 1 <= self.fixed_blocks:
                 x = x.detach()
         if valid_hw is not None:
-            x = mask_valid(x, valid_hw)
+            x = conv_epilogue(x, valid_hw=valid_hw)
         return x
 
 

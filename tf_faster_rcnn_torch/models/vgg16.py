@@ -5,7 +5,9 @@ module names (``conv1_1`` .. ``conv5_3``, ``fc6``, ``fc7``):
 
 * head: 13 SAME 3x3 convs with relu, each followed by ``mask_valid``, and
   a 2x2/2 SAME max-pool after conv1-conv4 (stride 16 at conv5_3). SAME
-  pads an odd size at the end with -inf, which is ``ceil_mode=True``;
+  pads an odd size at the end with -inf, which is ``ceil_mode=True``. A
+  conv's bias, relu and mask run as one ``frcnn::conv_epilogue`` pass
+  (``ConvSame.with_epilogue``), and so does the mask after a pool;
 * conv1 and conv2 are always frozen: the head detaches after conv2's pool,
   as the JAX head stops the gradient there, and ``trainable_filter`` leaves
   them out of the optimizer;
@@ -23,8 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tf_faster_rcnn_torch.models.layers import (ConvSame, Dense, mask_valid,
-                                                shrink_valid)
+from tf_faster_rcnn_torch.models.layers import ConvSame, Dense, shrink_valid
+from tf_faster_rcnn_torch.ops.epilogue import conv_epilogue
 
 __all__ = ["VGG16Head", "VGG16Tail", "FC_WIDTH", "KEEP_PROB",
            "trainable_filter"]
@@ -54,14 +56,13 @@ class VGG16Head(nn.Module):
         None. Returns [B, 512, ceil(H/16), ceil(W/16)]."""
         for i, (reps, _, name) in enumerate(_CFG):
             for r in range(reps):
-                x = F.relu(getattr(self, f"{name}_{r + 1}")(x))
-                if valid_hw is not None:
-                    x = mask_valid(x, valid_hw)
+                x = getattr(self, f"{name}_{r + 1}").with_epilogue(
+                    x, relu=True, valid_hw=valid_hw)
             if i < len(_CFG) - 1:           # no pool after conv5
                 x = F.max_pool2d(x, 2, 2, ceil_mode=True)
                 if valid_hw is not None:
                     valid_hw = shrink_valid(valid_hw, 2)
-                    x = mask_valid(x, valid_hw)
+                    x = conv_epilogue(x, valid_hw=valid_hw)
             if name == "conv2":
                 x = x.detach()              # conv1 and conv2 are frozen
         return x

@@ -38,9 +38,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "frcnn_nms_max_kept": ([], _I),
     "frcnn_nms_keep": ([_P, _P, _I, _I, _F, _I, _I, _I, _P, _P, _P], _I),
+    "frcnn_epilogue_fwd": ([_I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _F,
+                            _P, _L, _L, _L, _P, _I, _I, _P], _I),
+    "frcnn_epilogue_bwd": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                            _F, _P, _I, _P], _I),
 }
 
 _lock = threading.Lock()
@@ -90,6 +95,8 @@ def _build(sources, lib_path):
 def get_lib() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
     global _lib
+    if _lib is not None:        # every launch asks: no lock once it is loaded
+        return _lib
     with _lock:
         if _lib is None:
             sources = _sources()

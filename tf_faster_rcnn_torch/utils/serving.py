@@ -5,8 +5,9 @@ batched detect program of ``engine/test_engine.py::make_detect_fn``
 (backbone, proposals with kernel K1, postprocess with kernel K2) is
 exported with ``torch.export``, one artifact per TEST canvas bucket, beside
 the model's parameters. A serving process loads the directory and calls the
-programs with torch and the port's operator registration
-(``ops/nms_kernels.py``) alone: no model code, no engine, no config.
+programs with torch and the port's operator registrations
+(``ops/nms_kernels.py``, ``ops/epilogue.py``) alone: no model code, no
+engine, no config.
 
 The parameters and buffers travel as an INPUT of each program, a dict in
 state_dict order, never as constants baked into it: they are written once,
@@ -51,7 +52,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from tf_faster_rcnn_torch.ops import nms_kernels  # noqa: F401  (the ops)
+from tf_faster_rcnn_torch.ops import epilogue, nms_kernels  # noqa: F401
 
 __all__ = ["MANIFEST", "PARAMS", "export_detect", "load_detect"]
 
