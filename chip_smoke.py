@@ -80,6 +80,26 @@ Phases, in order; any failure raises and the exit code is nonzero:
 10. TEST.MODE 'top': one res101 detect step (B = 2, TEST.RPN_TOP_N 5000 of
    the 21888 anchors): K1 not launched, K2 launched and equal to its plain
    version, the proposals sorted by descending score;
+10b. R-101-FPN: one detect step of the benchmark's r101-fpn-coco-detect-b8
+   cell as it runs it (its configuration file applied to the port's cfg,
+   its seeded weights, its first batch of 8 images on the 800x1344
+   canvas, bf16), the counters zeroed just before the step (the second
+   on the canvas, which captures the trunk's CUDA graph and so runs every
+   call of the trunk once, as an eager step does): K1 once at
+   [40, 1000] (8 images x 5 levels, 1000 candidates each) with max_keep
+   1000, K2 once at [640, 1000], the conv epilogue 118 times
+   (epilogues_a_step), fpn.nms_instances 40; K1 and K2 each equal to its
+   plain version on the step's own inputs, and K3 bit for bit against its
+   plain composition on the step's own operands of every lateral (bias,
+   the nearest-x2 coarser level as its residual, mask) and of rpn_conv on
+   each of P2-P6 (bias, ReLU, mask); the step's host syncs under torch's
+   sync debug mode no more than the three of the single-map step (F1);
+   the trunk replayed from its graph bit for bit equal to the trunk run
+   eagerly, and the replayed step's detections to an eager step's;
+   step time and peak memory; K1's and K2's rows (graph replay, plain,
+   bound) and K3's forward at the P2 lateral and rpn_conv (CUDA events,
+   byte bound, plain), printed as a kernel line of their own and added to
+   the last one;
 11. eval: a temporary VOCdevkit2007 test split of 64 images at VOC's sizes
    (40 landscape 500x375, 24 portrait 375x500, so both canvases 608x1024
    and 1024x608 run), painted rectangles of the 20 classes with XML
@@ -274,6 +294,9 @@ SEED = 0
 WARMUP = 3
 ITERS = 5
 SOURCE = "tf_faster_rcnn_torch/csrc/nms.cu"
+FPN_CELL = "r101-fpn-coco-detect-b8"
+FPN_SEED = 4177000013     # the weights and images of phase 10b's step
+DETECT_SYNCS = 3          # the single-map detect step's host syncs (F1)
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 FLOP/s outside
 # the tensor cores; and the float32 operations of one IoU test (min, max,
 # sub, add, max for each of iw and ih; inter; uni's add and sub; uni > 0;
@@ -701,10 +724,17 @@ EPILOGUE_CROPS = 2400     # the res101 detect step's RoIs: 8 images x 300
 def epilogues_a_step(backbone):
     """frcnn::conv_epilogue launches in one forward: a ResNet's stem, pool
     mask, three a unit and a shortcut a block, the head's final mask, the
-    RPN conv and block4 on the crops; vgg16's 13 convs, 4 pool masks and
-    the RPN conv; MobileNet's RPN conv alone (its layers keep the plain
-    ops)."""
+    RPN conv and block4 on the crops; R-101-FPN's stem, pool mask, three a
+    unit and a shortcut a block (block4 on the image, no final mask), four
+    laterals, four output convs and the RPN conv on five levels; vgg16's
+    13 convs, 4 pool masks and the RPN conv; MobileNet's RPN conv alone
+    (its layers keep the plain ops)."""
+    from tf_faster_rcnn_torch.models import fpn
     from tf_faster_rcnn_torch.models.resnet_v1 import BLOCK_UNITS
+    if backbone == "res101_fpn":
+        units = BLOCK_UNITS[101]
+        return (2 + 3 * sum(units) + len(units) + 2 * len(fpn.ROI_LEVELS)
+                + len(fpn.RPN_LEVELS))
     if backbone.startswith("res"):
         units = BLOCK_UNITS[int(backbone[3:])]
         return 2 + 3 * sum(units[:3]) + 3 + 1 + 1 + 3 * units[3] + 1
@@ -813,9 +843,9 @@ def epilogue_case(dev, label, shape, dtype, mode, seed, times=False,
     return row
 
 
-def epilogue_times(kw, x, grad, y, args):
-    """Forward and backward device ms, byte bounds and shares at 3.35e12
-    B/s, and the plain composition's forward ms."""
+def epilogue_times(kw, x, grad, y, args, backward=True):
+    """Forward and (with backward) backward device ms, byte bounds and
+    shares at 3.35e12 B/s, and the plain composition's forward ms."""
     import torch
     from tf_faster_rcnn_torch.ops.epilogue import conv_epilogue_plain
     ep = torch.ops.frcnn
@@ -833,12 +863,15 @@ def epilogue_times(kw, x, grad, y, args):
     with torch.no_grad():
         fwd = timed(lambda: ep.conv_epilogue.default(*fargs),
                     iters=EPILOGUE_ITERS)
-        bwd = timed(lambda: ep.conv_epilogue_backward.default(
-            grad, y if relu else None, scale, mean, var, args[5], args[7],
-            want_gs), iters=EPILOGUE_ITERS)
+        rows = [("fwd", fwd, fwd_bytes)]
+        if backward:
+            rows.append(("bwd", timed(
+                lambda: ep.conv_epilogue_backward.default(
+                    grad, y if relu else None, scale, mean, var, args[5],
+                    args[7], want_gs), iters=EPILOGUE_ITERS), bwd_bytes))
         plain = timed(lambda: conv_epilogue_plain(*fargs), iters=5)
     out = {}
-    for key, ms, nbytes in (("fwd", fwd, fwd_bytes), ("bwd", bwd, bwd_bytes)):
+    for key, ms, nbytes in rows:
         bound_ms = nbytes / HBM_BYTES_S * 1e3
         out.update({f"{key}_ms": ms, f"{key}_bytes": nbytes,
                     f"{key}_bound_ms": bound_ms,
@@ -1630,6 +1663,262 @@ def phase_detect_path(card, dev, label, spec, errors, batch=BATCH,
             for name, (args, kwargs) in record.items()}
     print(f"phase {label}: {time.perf_counter() - t0:.1f} s")
     return rows
+
+
+@contextlib.contextmanager
+def epilogue_calls(modules, calls):
+    """Record in calls every frcnn::conv_epilogue call that the
+    with_epilogue of one of modules (label -> ConvSame) makes, as (label,
+    the conv's output, the epilogue's keyword operands), in call order."""
+    from tf_faster_rcnn_torch.models import layers
+    saved = layers.conv_epilogue
+    current = []
+
+    def recorded(x, **kw):
+        if current:
+            calls.append((current[-1], x, dict(kw)))
+        return saved(x, **kw)
+
+    def labelled(label, method):
+        def call(*args, **kwargs):
+            current.append(label)
+            try:
+                return method(*args, **kwargs)
+            finally:
+                current.pop()
+        return call
+
+    layers.conv_epilogue = recorded
+    for label, module in modules.items():
+        module.with_epilogue = labelled(label, module.with_epilogue)
+    try:
+        yield
+    finally:
+        layers.conv_epilogue = saved
+        for module in modules.values():
+            del module.with_epilogue
+
+
+def epilogue_mode(kw):
+    """A recorded call's terms in EPILOGUE_CASES' words ("bias+res+mask")."""
+    terms = (("bn", kw.get("mean") is not None),
+             ("bias", kw.get("mean") is None and kw.get("shift") is not None),
+             ("res", kw.get("residual") is not None),
+             ("relu", bool(kw.get("relu"))),
+             ("mask", kw.get("valid_hw") is not None))
+    return "+".join(name for name, on in terms if on)
+
+
+def build_fpn_step(dev):
+    """The r101-fpn-coco-detect-b8 cell's program and first batch: its
+    configuration applied to the port's cfg (reset by the caller), its
+    weights drawn from FPN_SEED, its first 8 images of the pool made from
+    FPN_SEED prepared on their canvas. Returns (model, spec, detect,
+    inputs)."""
+    import torch
+    from frcnn_bench import harness
+    from frcnn_bench.reference.fpn import make_weights
+    from frcnn_bench.traffic.scenes import make_pool
+    from tf_faster_rcnn_torch.config import bucket_index, canvas_buckets
+    from tf_faster_rcnn_torch.data.blob import prep_batch, upload
+    from tf_faster_rcnn_torch.engine.test_engine import make_detect_fn
+    cell = harness.load_cell(FPN_CELL)
+    config, traffic = cell.config, cell.traffic
+    cfg = harness.port_cfg(config)
+    model, spec = harness.build_program(
+        config, "TEST", make_weights(config, FPN_SEED, dev), dev)
+    model.eval()
+    pool = make_pool(traffic, config["num_classes"], FPN_SEED, dev)
+    ims = pool.images[:int(traffic["batch"])]
+    buckets = canvas_buckets(cfg.TEST)
+    canvas = buckets[bucket_index(*ims[0].shape[:2], buckets)]
+    test = config["cfg"]["TEST"]
+    means = upload(np.asarray(config["cfg"]["PIXEL_MEANS"], np.float32), dev)
+    inputs = prep_batch(ims, canvas, dev, [test["SCALES"][0]] * len(ims),
+                        test["MAX_SIZE"], means)
+    torch.cuda.synchronize()
+    return model, spec, make_detect_fn(model, spec), inputs
+
+
+def phase_fpn(card, dev, errors):
+    """Phase 10b (docstring): R-101-FPN's detect step as its benchmark cell
+    runs it. Returns {"paths": {"detect fpn": K1's and K2's rows},
+    "epilogue": K3's rows at the P2 lateral and rpn_conv}, also printed
+    as a kernel line."""
+    import torch
+    from tf_faster_rcnn_torch.config import reset_cfg
+    from tf_faster_rcnn_torch.models import fpn
+    from tf_faster_rcnn_torch.ops import epilogue
+    from tf_faster_rcnn_torch.ops import nms_kernels as K
+    from tf_faster_rcnn_torch.ops.epilogue import conv_epilogue_plain
+    from tf_faster_rcnn_torch.utils import trace
+    label = "detect fpn"
+    t0 = time.perf_counter()
+    try:
+        model, spec, detect, inputs = build_fpn_step(dev)
+        batch = inputs[0].shape[0]
+        canvas = tuple(inputs[0].shape[1:3])
+        with torch.inference_mode():
+            detect(*inputs)           # cuDNN's first choices, off the count
+        torch.cuda.synchronize()
+        record, calls = {}, []
+        modules = {f"lateral{k}": getattr(model.fpn, f"lateral{k}")
+                   for k in fpn.ROI_LEVELS}
+        modules["rpn_conv"] = model.rpn_conv
+        K.reset_launch_counts()
+        trace.zero(epilogue.LAUNCHES, fpn.NMS_INSTANCES)
+        # the canvas's second step: it captures the trunk's graph, so every
+        # call of the trunk runs once on the host and is counted
+        with nms_route(record=record), epilogue_calls(modules, calls):
+            det, dv = detect(*inputs)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        counted = trace.counts()
+        fused = counted.get(epilogue.LAUNCHES, 0)
+        instances = counted.get(fpn.NMS_INSTANCES, 0)
+        levels = len(fpn.RPN_LEVELS)
+        print(f"{label} path: {spec.backbone} {spec.compute_dtype} B={batch} "
+              f"{canvas[0]}x{canvas[1]} {spec.num_classes} classes, "
+              f"proposals {spec.rpn_pre_nms_top_n} a level -> "
+              f"{spec.rpn_post_nms_top_n}; launches {launches}, conv "
+              f"epilogue {fused}, fpn.nms_instances {instances}")
+        want = epilogues_a_step(spec.backbone)
+        if launches != {"nms_keep_mask_batched": 1, "batched_nms_keep": 1}:
+            raise AssertionError(f"{label}: launches {launches}, want K1 1 "
+                                 "and K2 1")
+        if fused != want:
+            raise AssertionError(f"{label}: {fused} conv epilogue launches, "
+                                 f"want {want}")
+        if instances != batch * levels:
+            raise AssertionError(f"{label}: fpn.nms_instances {instances}, "
+                                 f"want {batch * levels}")
+        k1_args, k1_kw = record["nms_keep_mask_batched"]
+        k2_args, _ = record["batched_nms_keep"]
+        k1_want = (batch * levels, spec.rpn_pre_nms_top_n, 4)
+        k2_want = (batch * (spec.num_classes - 1), spec.rpn_post_nms_top_n,
+                   4)
+        if (tuple(k1_args[0].shape) != k1_want
+                or k1_kw.get("max_keep") != spec.rpn_post_nms_top_n
+                or tuple(k2_args[0].shape) != k2_want):
+            raise AssertionError(
+                f"{label}: K1 {tuple(k1_args[0].shape)} {k1_kw}, K2 "
+                f"{tuple(k2_args[0].shape)}; want {k1_want} max_keep "
+                f"{spec.rpn_post_nms_top_n} and {k2_want}")
+        if tuple(det.shape) != (batch, spec.max_per_image, 6) \
+                or not bool(torch.isfinite(det).all()):
+            raise AssertionError(f"{label}: detections {tuple(det.shape)} "
+                                 "or not finite")
+        per_image = dv.sum(dim=1).tolist()
+        print(f"  valid detections per image: {per_image}")
+        if min(per_image) < 1:
+            raise AssertionError(f"{label}: an image has no valid detection")
+        for name, (args, kwargs) in record.items():
+            kernel, plain = kernel_pairs()[name]
+            check_equal(errors, name, kernel(*args, **kwargs),
+                        plain(*args, **kwargs),
+                        f"{label} path {tuple(args[0].shape)} {kwargs}")
+
+        # K3 on the step's own operands: each lateral, rpn_conv a level
+        names = [c[0] for c in calls]
+        want_calls = [f"lateral{k}" for k in reversed(fpn.ROI_LEVELS)] \
+            + ["rpn_conv"] * levels
+        if names != want_calls:
+            raise AssertionError(f"{label}: epilogue calls {names}, want "
+                                 f"{want_calls}")
+        rows, level = [], {}
+        with torch.inference_mode():
+            for name, x, kw in calls:
+                level[name] = level.get(name, -1) + 1
+                lv = (int(name[-1]) if name.startswith("lateral")
+                      else fpn.RPN_LEVELS[level[name]])
+                args = [x, kw.get("scale"), kw.get("shift"), kw.get("mean"),
+                        kw.get("var"), kw.get("eps", 0.0),
+                        kw.get("residual"), kw.get("valid_hw"),
+                        bool(kw.get("relu", False))]
+                mode = epilogue_mode(kw)
+                y = epilogue.conv_epilogue(x, **kw)
+                y0 = conv_epilogue_plain(*args)
+                torch.cuda.synchronize()
+                equal = same_bits(y, y0)
+                case = f"r101-fpn {name} P{lv}"
+                print(f"  epilogue {case} {tuple(x.shape)} {mode}: bit-equal "
+                      f"to the plain composition {equal}")
+                if not equal:
+                    raise AssertionError(f"{label}: epilogue {case} kernel "
+                                         "!= plain")
+                if lv == fpn.ROI_LEVELS[0]:
+                    row = {"case": case, "shape": list(x.shape),
+                           "dtype": str(x.dtype).split(".")[-1],
+                           "mode": mode, "equal": {"y": equal},
+                           "launches": ("1 a forward" if name != "rpn_conv"
+                                        else f"1 a level, {levels} a "
+                                        "forward")}
+                    row.update(epilogue_times(kw, x, None, y, args,
+                                              backward=False))
+                    print(f"time epilogue {case} {tuple(x.shape)} {mode}: "
+                          f"forward {row['fwd_ms']:.4f} ms (bound "
+                          f"{row['fwd_bound_ms']:.4f}, share "
+                          f"{row['fwd_share']:.3f}), plain forward "
+                          f"{row['plain_fwd_ms']:.4f} ms [{card}]")
+                    rows.append(row)
+        del calls
+
+        syncs = host_syncs(lambda: detect(*inputs))
+        print(f"  host syncs of the step (sync debug mode): {len(syncs)} "
+              f"(the single-map step's: {DETECT_SYNCS})")
+        for message in syncs:
+            print("    " + message.splitlines()[0][:160])
+        if len(syncs) > DETECT_SYNCS:
+            raise AssertionError(f"{label}: {len(syncs)} host syncs, more "
+                                 f"than the single-map step's "
+                                 f"{DETECT_SYNCS}")
+
+        # the trunk replayed from its graph against the trunk run eagerly,
+        # and a replayed step against an eager one (a fresh cache's first)
+        image, info = inputs[0], inputs[1]
+        with torch.inference_mode():
+            replayed = [t.clone() for t in model.trunk_graphs(
+                model.head, spec.dtype, image, info)]
+            eager = model.head(image.to(spec.dtype).permute(0, 3, 1, 2),
+                               info[:, :2])
+            det_r, dv_r = detect(*inputs)
+            graphs, model.trunk_graphs = (model.trunk_graphs,
+                                          fpn.TrunkGraphs())
+            det_e, dv_e = detect(*inputs)
+            model.trunk_graphs = graphs
+        torch.cuda.synchronize()
+        trunk_equal = all(same_bits(a, b) for a, b in zip(replayed, eager))
+        step_equal = same_bits(det_r, det_e) and torch.equal(dv_r, dv_e)
+        print(f"  trunk replayed from its CUDA graph ({len(graphs.graphs)} "
+              f"canvas): bit-equal to the eager trunk {trunk_equal}; "
+              f"replayed step's detections to an eager step's {step_equal}")
+        if not (trunk_equal and step_equal):
+            raise AssertionError(f"{label}: the replayed trunk differs from "
+                                 "the eager one")
+        del replayed, eager, det_r, dv_r, det_e, dv_e
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = timed(lambda: detect(*inputs))
+        peak = torch.cuda.max_memory_allocated()
+        print(f"time {label} step: {ms:.3f} ms, {batch * 1000.0 / ms:.2f} "
+              f"images/s ({spec.backbone} {spec.compute_dtype}, TF32 off, "
+              f"B={batch}, mean of {ITERS}), peak memory "
+              f"{peak / 2**30:.3f} GiB [{card}]")
+        paths = {label: {
+            name: kernel_row(card, label, name, args, kwargs,
+                             launches[name])
+            for name, (args, kwargs) in record.items()}}
+    finally:
+        reset_cfg()
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES[name], "paths": {label: paths[label][name]}}
+        for name in ("nms_keep_mask_batched", "batched_nms_keep")]
+        + [{"name": "conv_epilogue", "route": "cuda",
+            "source": "tf_faster_rcnn_torch/csrc/epilogue.cu",
+            "replaces": None, "cases": rows}]}))
+    print(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+    return {"paths": paths, "epilogue": rows}
 
 
 def phase_train_variant(card, dev, label, errors, backbone="res101",
@@ -4108,6 +4397,10 @@ def main():
     paths["detect top"] = phase_detect_path(
         card, dev, "detect top", replace(spec_main, test_mode="top"), errors,
         batch=TOP_BATCH)
+    fpn_rows = phase_fpn(card, dev, errors)
+    paths.update(fpn_rows["paths"])
+    epilogue_row["cases"] += fpn_rows["epilogue"]
+    torch.cuda.empty_cache()
     paths["eval f32"], eval_ref = phase_eval(card, dev, errors)
     paths.update(phase_train_loop(card, dev, errors, train_ms))
     paths["serve f32"] = phase_serve(card, dev, errors)

@@ -416,3 +416,26 @@ def test_upload_on_cpu_shares_memory():
     t = tblob.upload(x, "cpu")
     assert t.device.type == "cpu" and t.data_ptr() == x.ctypes.data
     assert torch.equal(t, torch.from_numpy(x))
+
+
+def test_cached_build_shows_no_half_written_cache(tmp_path, monkeypatch):
+    """cached_build writes its pickle under a name of the process's own and
+    renames it into place: while the pickle is written the cache's name
+    does not exist, so a second process building the same roidb (a
+    data-parallel rank) never loads a partial file; nothing else is left."""
+    from tf_faster_rcnn_torch.datasets import annotations
+    cache = tmp_path / "cache" / "voc_2007_test_gt_roidb.pkl"
+    during = []
+    dump = pickle.dump
+
+    def watched(obj, f, *args):
+        during.append(cache.exists())
+        dump(obj, f, *args)
+    monkeypatch.setattr(pickle, "dump", watched)
+    assert annotations.cached_build(cache, lambda: [{"boxes": 1}]) == [
+        {"boxes": 1}]
+    assert during == [False]
+    assert [p.name for p in cache.parent.iterdir()] == [cache.name]
+    again = annotations.cached_build(
+        cache, lambda: pytest.fail("a cached roidb was built again"))
+    assert again == [{"boxes": 1}]

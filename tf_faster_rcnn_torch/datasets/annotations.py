@@ -18,6 +18,7 @@ ours.
 
 from __future__ import annotations
 
+import os
 import pickle
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -94,7 +95,10 @@ def flipped_entry(entry: dict, width: int) -> dict:
 def cached_build(cache_file: str | Path, build: Callable[[], object],
                  what: str = 'roidb'):
     """Build-or-load with a pickle cache (the reference caches gt roidbs the
-    same way, pascal_voc.py:98-120)."""
+    same way, pascal_voc.py:98-120). The cache is written under a name of
+    this process's own and then renamed into place, so another process
+    (a data-parallel rank building the same roidb) never reads it half
+    written."""
     cache_file = Path(cache_file)
     if cache_file.exists():
         with cache_file.open('rb') as f:
@@ -103,7 +107,9 @@ def cached_build(cache_file: str | Path, build: Callable[[], object],
         return data
     data = build()
     cache_file.parent.mkdir(parents=True, exist_ok=True)
-    with cache_file.open('wb') as f:
+    part = cache_file.with_name(f'{cache_file.name}.{os.getpid()}.part')
+    with part.open('wb') as f:
         pickle.dump(data, f, pickle.HIGHEST_PROTOCOL)
+    os.replace(part, cache_file)
     print(f'[cache] {what} -> {cache_file}')
     return data

@@ -58,7 +58,7 @@ def recipe(path: str, leaf: str, fan_in: int):
         return ("normal", 0.01)
     he = math.sqrt(2.0 / fan_in)
     top = parts[0]
-    if top in ("head", "tail"):
+    if top in ("head", "tail", "fpn"):
         if parts in _STEMS:
             return ("normal", he / 128.0)          # raw-pixel stem input
         if parts[-2:] == ["conv3", "conv"]:
@@ -135,6 +135,8 @@ def reference_dist(backbone: str, path: str, leaf: str,
         return ("ones",) if leaf in ("var", "scale") else ("zeros",)
     if leaf == "bias":
         return ("zeros",)                    # flax's default bias init
+    if parts[0] == "fpn":
+        return ("scaled", 1.0)               # the pyramid's convs: Xavier
     if parts[0] in ("head", "tail"):
         if backbone == "vgg16":
             return ("scaled", 1.0)           # lecun_normal, vgg16.py:24-60

@@ -5,7 +5,10 @@ Port of ``tf_faster_rcnn_tpu/models/network.py`` (``ModelSpec``,
 every backbone (vgg16, res50/101/152, mobile): backbone head, RPN, anchor
 decode, proposal selection (NMS through kernel K1, or TEST.MODE 'top'), in
 TRAIN mode the two target samplers, RoI crop, tail, heads and, in TEST mode,
-bbox un-normalization. The public layouts are the JAX ones: the image is NHWC
+bbox un-normalization. Besides, ``res101_fpn`` (TEST only): R-101-FPN, the
+trunk through block4 in the pyramid layout, the feature pyramid, the RPN on
+its five levels, each RoI cropped from its own level and the two-fc head
+(``models/fpn.py``). The public layouts are the JAX ones: the image is NHWC
 [B, H, W, 3] and the output dict has the keys and shapes of
 ``FasterRCNN.__call__``. Inside, the convolutions run in NCHW.
 
@@ -30,22 +33,23 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from tf_faster_rcnn_torch.models import mobilenet_v1, resnet_v1, vgg16
+from tf_faster_rcnn_torch.models import fpn, mobilenet_v1, resnet_v1, vgg16
 from tf_faster_rcnn_torch.models.layers import ConvSame, Dense
 from tf_faster_rcnn_torch.models.targets import anchor_target, proposal_target
 from tf_faster_rcnn_torch.ops.anchors import anchor_grid_on
 from tf_faster_rcnn_torch.ops.boxes import (BBOX_XFORM_CLIP,
                                             bbox_transform_inv, clip_boxes)
 from tf_faster_rcnn_torch.ops.nms import sorted_nms
-from tf_faster_rcnn_torch.ops.roi_align import roi_crop_pool
+from tf_faster_rcnn_torch.ops.roi_align import pyramid_crop, roi_crop_pool
 from tf_faster_rcnn_torch.parallel.dist import local_slice
 from tf_faster_rcnn_torch.utils.trace import span
 
 __all__ = ["ModelSpec", "FasterRCNN", "TrainNoise", "draw_noise",
            "extract_head", "shard_noise", "spec_from_cfg", "trainable_mask"]
 
-BACKBONES = ("vgg16", "res50", "res101", "res152", "mobile")
+BACKBONES = ("vgg16", "res50", "res101", "res152", "mobile", "res101_fpn")
 RESNETS = ("res50", "res101", "res152")
+PYRAMIDS = ("res101_fpn",)      # backbones with a feature pyramid
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -104,6 +108,12 @@ class ModelSpec:
     @property
     def num_anchors(self) -> int:
         return len(self.anchor_scales) * len(self.anchor_ratios)
+
+    @property
+    def pyramid(self) -> bool:
+        """A feature-pyramid backbone: rpn_pre_nms_top_n then counts each
+        (image, level) instance's candidates."""
+        return self.backbone in PYRAMIDS
 
     @property
     def dtype(self) -> torch.dtype:
@@ -183,6 +193,14 @@ def _check_supported(spec: ModelSpec):
         if getattr(spec, field) not in allowed:
             raise ValueError(f"{field} {getattr(spec, field)!r}: one of "
                              f"{allowed}")
+    if spec.pyramid and spec.mode == "TRAIN":
+        raise NotImplementedError(
+            f"{spec.backbone} TRAIN: training a feature pyramid (per-level "
+            "anchor targets) is not ported; ROADMAP.md, Queue 4")
+    if spec.pyramid and spec.test_mode != "nms":
+        raise NotImplementedError(
+            f"{spec.backbone}: TEST.MODE {spec.test_mode!r}; a feature "
+            "pyramid's proposals take NMS ('nms')")
 
 
 class TrainNoise(NamedTuple):
@@ -248,7 +266,7 @@ def trainable_mask(model: nn.Module) -> dict:
     s = model.spec
     if s.backbone == "vgg16":
         keep = vgg16.trainable_filter
-    elif s.backbone in RESNETS:
+    elif s.backbone in RESNETS + PYRAMIDS:
         def keep(rest):
             return resnet_v1.trainable_filter(rest, s.fixed_blocks)
     else:
@@ -261,6 +279,15 @@ def trainable_mask(model: nn.Module) -> dict:
     return mask
 
 
+def decode_boxes(anchors, deltas, im_info):
+    """Boxes [B, N, 4] of deltas [B, N, 4] on anchors [N, 4], decoded with
+    dw, dh capped at BBOX_XFORM_CLIP and clipped to each image's extent
+    (im_info [B, 3])."""
+    return clip_boxes(bbox_transform_inv(anchors, deltas,
+                                         xform_clip=BBOX_XFORM_CLIP),
+                      im_info[:, :2])
+
+
 def build_backbone(spec: ModelSpec):
     """(head, tail) modules of spec's backbone, in its compute dtype."""
     dt = spec.dtype
@@ -270,6 +297,11 @@ def build_backbone(spec: ModelSpec):
         depth = int(spec.backbone[3:])
         return (resnet_v1.ResNetV1Head(depth, spec.fixed_blocks, dt),
                 resnet_v1.ResNetV1Tail(depth, dt))
+    if spec.pyramid:
+        depth = int(spec.backbone[3:].split("_")[0])
+        return (resnet_v1.ResNetV1Head(depth, spec.fixed_blocks, dt,
+                                       pyramid=True),
+                fpn.TwoFCHead(spec.pooling_size, fpn.FPN_CHANNELS, dt))
     return (mobilenet_v1.MobileNetV1Head(spec.depth_multiplier,
                                          spec.fixed_layers, dt),
             mobilenet_v1.MobileNetV1Tail(spec.depth_multiplier, dt))
@@ -280,8 +312,8 @@ class FasterRCNN(nn.Module):
 
     Submodule names follow the flax ones: ``head``, ``rpn_conv``,
     ``rpn_cls_score``, ``rpn_bbox_pred``, ``tail``, ``cls_score``,
-    ``bbox_pred``. Frozen parameters (``trainable_mask``) have
-    ``requires_grad`` False.
+    ``bbox_pred``; a pyramid backbone adds ``fpn`` after ``head``. Frozen
+    parameters (``trainable_mask``) have ``requires_grad`` False.
 
     The parameters are built on ``device``: the CUDA device when it is None,
     and a RuntimeError when there is none (nothing falls back to the CPU);
@@ -303,7 +335,12 @@ class FasterRCNN(nn.Module):
         # init_model draws in state_dict order
         head, tail = build_backbone(spec)
         self.head = head
-        self.rpn_conv = ConvSame(head.out_channels, rpn, 3, compute_dtype=dt)
+        feat = head.out_channels
+        if spec.pyramid:
+            self.fpn = fpn.FPN(head.out_channels, dt)
+            feat = fpn.FPN_CHANNELS
+            self.trunk_graphs = fpn.TrunkGraphs()
+        self.rpn_conv = ConvSame(feat, rpn, 3, compute_dtype=dt)
         self.rpn_cls_score = ConvSame(rpn, 2 * a, 1, compute_dtype=dt)
         self.rpn_bbox_pred = ConvSame(rpn, 4 * a, 1, compute_dtype=dt)
         self.tail = tail
@@ -316,6 +353,32 @@ class FasterRCNN(nn.Module):
         # parallel/spatial.py::partition; used where a batch holds rows
         self.spatial = None
         self.to(device)
+
+    def _rpn(self, feats, valid=None):
+        """The RPN head on feature maps [B, C, fh, fw] (one map, or a
+        pyramid's levels), their anchors end to end, each map's in (y, x, a)
+        order: (score pairs [B, N, 2], deltas [B, N, 4], fg probability
+        [B, N]), float32. valid: each map's cell extents, to mask the
+        conv's output, or None."""
+        a = self.spec.num_anchors
+        pairs, deltas = [], []
+        for i, feat in enumerate(feats):
+            b = feat.shape[0]
+            rpn = self.rpn_conv.with_epilogue(
+                feat, relu=True, valid_hw=None if valid is None else valid[i])
+            # NHWC before the flatten: anchors run in (y, x, a) order
+            cls = self.rpn_cls_score(rpn).permute(0, 2, 3, 1)
+            # channel c < A is the bg logit and c + A the fg logit of
+            # anchor c
+            pairs.append(torch.stack([cls[..., :a], cls[..., a:]],
+                                     dim=-1).reshape(b, -1, 2))
+            deltas.append(self.rpn_bbox_pred(rpn).permute(0, 2, 3, 1)
+                          .reshape(b, -1, 4))
+        if len(feats) > 1:
+            pairs, deltas = [torch.cat(pairs, dim=1)], [torch.cat(deltas, 1)]
+        score_pairs = pairs[0].to(torch.float32)
+        return (score_pairs, deltas[0].to(torch.float32),
+                torch.softmax(score_pairs, dim=-1)[..., 1])
 
     def _proposals(self, anchors, rpn_bbox, fg_scores, im_info, fw: int,
                    top_pad=None):
@@ -333,9 +396,7 @@ class FasterRCNN(nn.Module):
         cell = torch.arange(anchors.shape[0], device=anchors.device)
         cell = cell // s.num_anchors
         cy, cx = cell // fw, cell % fw
-        boxes = bbox_transform_inv(anchors, rpn_bbox,
-                                   xform_clip=BBOX_XFORM_CLIP)
-        boxes = clip_boxes(boxes, im_info[:, :2])
+        boxes = decode_boxes(anchors, rpn_bbox, im_info)
         ext = torch.ceil(im_info[:, :2] / s.feat_stride)
         avalid = (cy < ext[:, :1]) & (cx < ext[:, 1:])
         if s.mode == "TEST" and s.test_mode == "top":
@@ -381,6 +442,14 @@ class FasterRCNN(nn.Module):
             fc7 = self.tail(pooled, dropout)
         else:
             fc7 = self.tail(pooled)
+        return self._class_heads(fc7, rois)
+
+    def _class_heads(self, fc7, rois):
+        """The class and box heads on fc7 [B * R, D] of rois [B, R, 4], and
+        in TEST mode the box deltas un-normalized: (cls_score [B, R, K],
+        bbox_pred [B, R, 4K]), float32."""
+        s = self.spec
+        b, r = rois.shape[:2]
         cls_score = self.cls_score(fc7).to(torch.float32)
         bbox_pred = self.bbox_pred(fc7).to(torch.float32)
         cls_score = cls_score.reshape(b, r, s.num_classes)
@@ -392,6 +461,51 @@ class FasterRCNN(nn.Module):
                                  device=rois.device).repeat(s.num_classes)
             bbox_pred = bbox_pred * stds + means
         return cls_score, bbox_pred
+
+    def _forward_pyramid(self, image, im_info):
+        """The TEST forward of a feature-pyramid backbone (models/fpn.py):
+        the trunk's C2-C5, the pyramid P2-P6, the shared RPN head on every
+        level, the proposals over the levels, each RoI cropped from its own
+        level of P2-P5, the two-fc head and the class and box heads. The
+        outputs as forward's, the RPN's over the levels end to end."""
+        s = self.spec
+        b, hh, ww, _ = image.shape
+        if hh % fpn.SIZE_DIVISOR or ww % fpn.SIZE_DIVISOR:
+            raise ValueError(f"canvas {hh}x{ww} is not a multiple of "
+                             f"{fpn.SIZE_DIVISOR}, the pyramid's stride")
+        with span("model.head"):
+            feats = self.trunk_graphs(self.head, s.dtype, image, im_info)
+        with span("model.fpn"):
+            levels, valid = self.fpn(feats, im_info[:, :2])
+        shapes = [tuple(p.shape[2:]) for p in levels]
+        with span("model.rpn"):
+            anchors = fpn.pyramid_anchors(shapes, image.device,
+                                          s.anchor_scales, s.anchor_ratios)
+            score_pairs, rpn_deltas, fg_prob = self._rpn(levels, valid)
+            boxes = decode_boxes(anchors, rpn_deltas, im_info)
+            inside = fpn.anchor_inside(shapes, s.num_anchors, im_info)
+            sizes = [h * w * s.num_anchors for h, w in shapes]
+            idx, roi_valid = fpn.pyramid_proposals(
+                boxes, fg_prob, inside, sizes, s.rpn_pre_nms_top_n,
+                s.rpn_post_nms_top_n, s.rpn_nms_thresh)
+            rois = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
+            roi_scores = torch.gather(fg_prob, 1, idx)
+        with span("model.roi_heads"):
+            r = rois.shape[1]
+            with span("model.pyramid_crop"):
+                n_roi = len(fpn.ROI_LEVELS)
+                pooled = pyramid_crop(levels[:n_roi],
+                                      fpn.level_strides(fpn.ROI_LEVELS), rois,
+                                      fpn.assign_levels(rois),
+                                      s.pooling_size, im_info[:, :2])
+            fc7 = self.tail(pooled.reshape(b * r, s.pooling_size,
+                                           s.pooling_size, -1))
+            cls_score, bbox_pred = self._class_heads(fc7, rois)
+            cls_prob = torch.softmax(cls_score, dim=-1)
+        return {"rpn_cls_score": score_pairs, "rpn_bbox_pred": rpn_deltas,
+                "anchors": anchors, "rois": rois, "roi_valid": roi_valid,
+                "roi_scores": roi_scores, "cls_score": cls_score,
+                "cls_prob": cls_prob, "bbox_pred": bbox_pred}
 
     def _targets(self, anchors, rois, roi_valid, im_info, gt_boxes,
                  gt_valid, noise):
@@ -454,6 +568,10 @@ class FasterRCNN(nn.Module):
         if train and (gt_boxes is None or gt_valid is None):
             raise ValueError("TRAIN mode needs gt_boxes and gt_valid")
         im_info = im_info.to(torch.float32)
+        if s.pyramid:
+            if canvas_h is not None:
+                raise ValueError("a feature pyramid runs on whole canvases")
+            return self._forward_pyramid(image, im_info)
 
         with span("model.head"):
             x = image.to(s.dtype).permute(0, 3, 1, 2)
@@ -471,18 +589,7 @@ class FasterRCNN(nn.Module):
             # ops
             anchors = anchor_grid_on(fh, fw, image.device, s.feat_stride,
                                      s.anchor_scales, s.anchor_ratios)
-            rpn = self.rpn_conv.with_epilogue(net_conv, relu=True)
-            # NHWC before the flatten: anchors run in (y, x, a) order
-            cls = self.rpn_cls_score(rpn).permute(0, 2, 3, 1)
-            rpn_deltas = self.rpn_bbox_pred(rpn).permute(0, 2, 3, 1)
-            # channel c < A is the bg logit and c + A the fg logit of
-            # anchor c
-            score_pairs = torch.stack([cls[..., :a], cls[..., a:]], dim=-1)
-            score_pairs = score_pairs.reshape(b, n_anchors, 2).to(
-                torch.float32)
-            fg_prob = torch.softmax(score_pairs, dim=-1)[..., 1]
-            rpn_deltas = rpn_deltas.reshape(b, n_anchors, 4).to(
-                torch.float32)
+            score_pairs, rpn_deltas, fg_prob = self._rpn([net_conv])
             # proposal selection is not differentiated (and K1 has no
             # backward)
             rois, roi_scores, roi_valid = self._proposals(

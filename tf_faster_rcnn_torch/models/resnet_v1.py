@@ -9,6 +9,10 @@ path joined with dots (``utils/weights.py``).
 * head: blocks 1-3 with strides (2, 2, 1), each block's stride on its LAST
   unit, so conv4 ends at stride 16;
 * tail: block4 (stride 1) on the RoI crops, then a spatial mean;
+* the pyramid layout (``ResNetV1Head(..., pyramid=True)``, R-101-FPN's
+  trunk, Detectron2's ``RESNETS.STRIDE_IN_1X1``): blocks 1-4 all in the
+  head, blocks 2-4 strided by 2 in the 1x1 ``conv1`` of their FIRST unit
+  (and its shortcut), returning C2-C5 at strides 4, 8, 16 and 32;
 * every conv computes in the compute dtype (``layers.ConvSame``), and its
   BN, the residual add, the ReLU and the mask run after it as one
   ``frcnn::conv_epilogue`` pass (``ConvSame.with_epilogue``), as do the
@@ -61,21 +65,25 @@ class _ConvBN(nn.Module):
 class Bottleneck(nn.Module):
     """1x1 reduce -> 3x3 (the unit stride) -> 1x1 expand, each with BN; relu
     after the residual add. The shortcut is a stride subsample when the
-    depth is unchanged, else a 1x1/stride conv + BN."""
+    depth is unchanged, else a 1x1/stride conv + BN. stride_in_1x1: the
+    stride sits in the 1x1 reduce instead, and the 3x3 runs at stride 1."""
 
     def __init__(self, in_ch: int, base_depth: int, stride: int,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 stride_in_1x1: bool = False):
         super().__init__()
         out_ch = base_depth * 4
         self.stride = stride
+        self.stride_in_1x1 = stride_in_1x1
+        s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
         dt = compute_dtype
         if in_ch != out_ch:
             self.shortcut = _ConvBN(in_ch, out_ch, 1, stride, relu=False,
                                     compute_dtype=dt)
         else:
             self.shortcut = None
-        self.conv1 = _ConvBN(in_ch, base_depth, 1, 1, compute_dtype=dt)
-        self.conv2 = _ConvBN(base_depth, base_depth, 3, stride,
+        self.conv1 = _ConvBN(in_ch, base_depth, 1, s1, compute_dtype=dt)
+        self.conv2 = _ConvBN(base_depth, base_depth, 3, s3,
                              compute_dtype=dt)
         self.conv3 = _ConvBN(base_depth, out_ch, 1, 1, relu=False,
                              compute_dtype=dt)
@@ -90,19 +98,25 @@ class Bottleneck(nn.Module):
             shortcut = x
         else:
             shortcut = x[:, :, ::self.stride, ::self.stride]
+        if self.stride_in_1x1 and valid_hw is not None:
+            valid_hw = shrink_valid(valid_hw, self.stride)
         r = self.conv2(self.conv1(x, valid_hw))
         return self.conv3(r, residual=shortcut)
 
 
 class _Block(nn.Module):
+    """num_units bottlenecks; the block's stride on its last unit's 3x3, or
+    with stride_in_1x1 on its first unit's 1x1 (the pyramid layout)."""
+
     def __init__(self, in_ch: int, base_depth: int, num_units: int,
-                 stride: int, compute_dtype: torch.dtype = torch.float32):
+                 stride: int, compute_dtype: torch.dtype = torch.float32,
+                 stride_in_1x1: bool = False):
         super().__init__()
-        self.strides = [stride if u == num_units - 1 else 1
-                        for u in range(num_units)]
+        at = 0 if stride_in_1x1 else num_units - 1
+        self.strides = [stride if u == at else 1 for u in range(num_units)]
         for u, s in enumerate(self.strides):
             self.add_module(f"unit_{u + 1}", Bottleneck(
-                in_ch, base_depth, s, compute_dtype))
+                in_ch, base_depth, s, compute_dtype, stride_in_1x1))
             in_ch = base_depth * 4
 
     def forward(self, x, valid_hw=None):
@@ -116,29 +130,39 @@ class _Block(nn.Module):
 class ResNetV1Head(nn.Module):
     """Stem + blocks 1-3 -> stride-16, 1024-channel conv4 features. The
     gradient stops after the stem and after each of the first fixed_blocks
-    blocks."""
+    blocks.
+
+    pyramid: the stem and blocks 1-4 in the pyramid layout (module
+    docstring), returning [C2, C3, C4, C5] with their margins left dirty
+    (the pyramid's 1x1 laterals mask their outputs); out_channels is then
+    the four depths."""
 
     out_channels = 1024
 
     def __init__(self, num_layers: int = 101, fixed_blocks: int = 0,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 pyramid: bool = False):
         super().__init__()
         units = BLOCK_UNITS[num_layers]
         self.fixed_blocks = fixed_blocks
+        self.pyramid = pyramid
         self.conv1 = ConvSame(3, 64, 7, 2, bias=False,
                               compute_dtype=compute_dtype)
         self.conv1_bn = FrozenBatchNorm(64)
-        self.block_strides = (2, 2, 1)
+        self.block_strides = (1, 2, 2, 2) if pyramid else (2, 2, 1)
         in_ch = 64
-        for b in range(3):
+        for b, s in enumerate(self.block_strides):
             self.add_module(f"block{b + 1}", _Block(
-                in_ch, _BASE_DEPTHS[b], units[b], self.block_strides[b],
-                compute_dtype))
+                in_ch, _BASE_DEPTHS[b], units[b], s, compute_dtype,
+                stride_in_1x1=pyramid))
             in_ch = _BASE_DEPTHS[b] * 4
+        if pyramid:
+            self.out_channels = tuple(d * 4 for d in _BASE_DEPTHS)
 
     def forward(self, x, valid_hw=None):
         """x: [B, 3, H, W]; valid_hw: [B, 2] per-image PIXEL extents, or None
-        for an input that is all image. Returns [B, 1024, H/16, W/16]."""
+        for an input that is all image. Returns [B, 1024, H/16, W/16], or
+        with pyramid [C2, C3, C4, C5]."""
         if valid_hw is not None:
             valid_hw = shrink_valid(valid_hw, 2)
         x = self.conv1.with_epilogue(x, bn=self.conv1_bn, relu=True,
@@ -149,12 +173,16 @@ class ResNetV1Head(nn.Module):
             valid_hw = shrink_valid(valid_hw, 2)
             x = conv_epilogue(x, valid_hw=valid_hw)
         x = x.detach()                      # the stem is always frozen
+        levels = []
         for b, s in enumerate(self.block_strides):
             x = getattr(self, f"block{b + 1}")(x, valid_hw)
             if valid_hw is not None:
                 valid_hw = shrink_valid(valid_hw, s)
             if b + 1 <= self.fixed_blocks:
                 x = x.detach()
+            levels.append(x)
+        if self.pyramid:
+            return levels
         if valid_hw is not None:
             x = conv_epilogue(x, valid_hw=valid_hw)
         return x

@@ -57,10 +57,13 @@ def generate_anchors(base_size=16, ratios=(0.5, 1, 2), scales=(8, 16, 32)):
 
 
 def anchor_grid_on(feat_h: int, feat_w: int, device, feat_stride: int = 16,
-                   anchor_scales=(8, 16, 32), anchor_ratios=(0.5, 1, 2)):
+                   anchor_scales=(8, 16, 32), anchor_ratios=(0.5, 1, 2),
+                   base_size: int = 16):
     """All anchors over a feat_h x feat_w grid, [feat_h*feat_w*A, 4] float32
-    on device, row-major over (y, x, a)."""
-    base = generate_anchors(ratios=np.array(anchor_ratios),
+    on device, row-major over (y, x, a); base_size: generate_anchors'
+    window (a pyramid level's own stride, models/fpn.py)."""
+    base = generate_anchors(base_size=base_size,
+                            ratios=np.array(anchor_ratios),
                             scales=np.array(anchor_scales))
     sx = torch.arange(feat_w, dtype=torch.float64, device=device)
     sy = torch.arange(feat_h, dtype=torch.float64, device=device)
@@ -72,7 +75,8 @@ def anchor_grid_on(feat_h: int, feat_w: int, device, feat_stride: int = 16,
 
 
 def anchor_grid(feat_h: int, feat_w: int, feat_stride: int = 16,
-                anchor_scales=(8, 16, 32), anchor_ratios=(0.5, 1, 2)):
+                anchor_scales=(8, 16, 32), anchor_ratios=(0.5, 1, 2),
+                base_size: int = 16):
     """anchor_grid_on's grid as a numpy array, built on the CPU."""
     return anchor_grid_on(feat_h, feat_w, "cpu", feat_stride, anchor_scales,
-                          anchor_ratios).numpy()
+                          anchor_ratios, base_size).numpy()
